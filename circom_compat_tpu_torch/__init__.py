@@ -1,0 +1,10 @@
+"""circom_compat_tpu_torch: the Groth16 prover of circom_compat_tpu, ported
+to PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
+
+Entry points: `models.groth16_device` (DeviceProvingKey, prove_prepared,
+prove) and the `models.groth16.Groth16` facade. They run on the card unless
+the caller passes device="cpu", where every kernel wrapper takes its plain
+PyTorch version.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,133 @@
+"""Pippenger multi-scalar multiplication with sorted buckets.
+
+Per window w of `window_bits` bits, the points are sorted by their digit
+(one stable sort per scalar vector serves every MSM over it), the bucket
+sums come from a segmented reduce by sorted key, and the window sum
+sum_j j * S_j is a reversed suffix scan of the buckets summed. All W
+windows of all the MSMs over one group go through ONE reduce: the sorted
+digits of MSM m's window w are offset by (m * W + w) * 2^window_bits, which
+keeps the concatenated keys sorted. The suffix scans of all windows are
+likewise one segmented scan, and their sums one reduce keyed by window.
+Batching keeps the plain versions' Python op count independent of W and M,
+and gives each kernel launch the work of all windows. The final Horner fold
+over the W window sums is tiny and runs on the host on exact ints, where
+the projective-to-affine inversion happens anyway.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+from . import curve as cv
+from . import curve_kernels as ck
+from . import segments
+
+SCALAR_BITS = 254  # BN254 Fr
+
+
+def num_windows(window_bits: int) -> int:
+    return -(-SCALAR_BITS // window_bits)
+
+
+def pick_window_bits(n: int) -> int:
+    """argmin over w in [8, 17] of W(w) * (n + 12 * 2^w), W = ceil(254/w).
+    PLACEHOLDER: the bucket coefficient 12 was fitted to the JAX package's
+    timings on another accelerator and has not been refitted on the H100."""
+    return min(range(8, 18), key=lambda w: -(-SCALAR_BITS // w) * (n + (12 << w)))
+
+
+def window_digits(scalars: torch.Tensor, window_bits: int) -> torch.Tensor:
+    """(N, 8) canonical plain words -> (W, N) int64 digits."""
+    u = scalars.to(torch.int64) & 0xFFFFFFFF
+    u = torch.cat((u, torch.zeros_like(u[:, :1])), dim=1)  # guard word
+    mask = (1 << window_bits) - 1
+    rows = []
+    for w in range(num_windows(window_bits)):
+        bit = w * window_bits
+        word, off = divmod(bit, 32)
+        d = u[:, word] >> off
+        if 32 - off < window_bits:  # the window straddles two words
+            d = d | (u[:, word + 1] << (32 - off))
+        rows.append(d & mask)
+    return torch.stack(rows)
+
+
+def window_orders(scalars: torch.Tensor, window_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(orders, keys), both (W, N) int64: keys[w] the sorted digits of
+    window w and orders[w] the stable argsort that sorts them."""
+    keys, orders = torch.sort(window_digits(scalars, window_bits), dim=1, stable=True)
+    return orders, keys
+
+
+def _leaf_scan(vt, ft):
+    """Level-0 Phase A of a bucket reduce: operands are affine-encoded."""
+    return ck.point_tile_scan(vt, ft, mixed=True)
+
+
+def _general_scan(vt, ft):
+    return ck.point_tile_scan(vt, ft, mixed=False)
+
+
+def bucket_sums(xys: Sequence[torch.Tensor], sorts: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                window_bits: int) -> torch.Tensor:
+    """(M, W, B, *point) bucket sums of M MSMs over one group, all in ONE
+    segmented reduce: MSM m's window w takes keys (m * W + w) * B + digit.
+    xys[m]: affine points, (N_m, 2, 8) G1 or (N_m, 2, 2, 8) G2 Montgomery
+    words with zero rows for infinity; sorts[m]: its (orders, keys)."""
+    g2 = xys[0].dim() == 4
+    W = sorts[0][0].shape[0]
+    B = 1 << window_bits
+    M = len(xys)
+    sizes = [o.numel() for o, _ in sorts]
+    dev = xys[0].device
+    pts = torch.empty((sum(sizes),) + (3,) + xys[0].shape[2:], dtype=torch.int32, device=dev)
+    gkeys = torch.empty(sum(sizes), dtype=torch.int64, device=dev)
+    off = 0
+    for m, (xy, (orders, keys)) in enumerate(zip(xys, sorts)):
+        n = sizes[m]
+        pts[off : off + n] = cv.affine_to_proj(xy[orders.reshape(-1)], g2)
+        base = (m * W + torch.arange(W, device=dev)) * B
+        gkeys[off : off + n] = (keys + base[:, None]).reshape(-1)
+        off += n
+    ident = cv.proj_identity_const(g2, dev)
+    sums = segments.reduce_by_sorted_key(ck.point_add, pts, gkeys, M * W * B, ident,
+                                         _leaf_scan, _general_scan)
+    return sums.reshape((M, W, B) + sums.shape[1:])
+
+
+def scan_buckets(buckets: torch.Tensor) -> torch.Tensor:
+    """(..., B, *point) -> (..., *point): sum_{j>=1} j * S_j per window, as
+    the sum of the inclusive suffix scan of buckets B-1 .. 1; all windows
+    in one segmented scan and one reduce keyed by window."""
+    g2 = buckets.shape[-3:] == (3, 2, 8)
+    pdims = 3 if g2 else 2
+    lead = buckets.shape[: buckets.dim() - pdims - 1]
+    B = buckets.shape[len(lead)]
+    flat = buckets.reshape((-1, B) + buckets.shape[len(lead) + 1 :])
+    nw = flat.shape[0]
+    rev = flat[:, 1:].flip(1).reshape((nw * (B - 1),) + flat.shape[2:])
+    idx = torch.arange(nw * (B - 1), device=buckets.device)
+    ident = cv.proj_identity_const(g2, buckets.device)
+    suffix = segments.segmented_scan(ck.point_add, rev, idx % (B - 1) == 0, ident,
+                                     _general_scan, _general_scan)
+    sums = segments.reduce_by_sorted_key(ck.point_add, suffix, idx // (B - 1), nw, ident,
+                                         _general_scan, _general_scan)
+    return sums.reshape(lead + sums.shape[1:])
+
+
+def window_sums(xys, sorts, window_bits: int) -> torch.Tensor:
+    """(M, W, *point) Pippenger window sums of M MSMs over one group."""
+    return scan_buckets(bucket_sums(xys, sorts, window_bits))
+
+
+def fold_windows_host(window_pts: List, curve_ops, window_bits: int):
+    """Horner over decoded window sums, most significant window first."""
+    acc = None
+    for w in reversed(range(len(window_pts))):
+        if acc is not None:
+            for _ in range(window_bits):
+                acc = curve_ops.double(acc)
+        acc = curve_ops.add(acc, window_pts[w])
+    return acc

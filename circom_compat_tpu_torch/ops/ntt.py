@@ -1,0 +1,167 @@
+"""Radix-2 NTT over Fr and the snarkjs (CircomReduction) witness map.
+
+The witness map evaluates the A and B constraint rows on the assignment
+(two sparse row sums), puts the public inputs into A's tail, and returns
+HZ = [A(x)B(x) - C(x)] on the coset of the 2n-th root of unity, C = A o B:
+six transforms (iFFT and FFT of a, b and c) with the coset shift and the
+pointwise products between them.
+
+Every domain size runs the four-step factorization n = n1 * n2 with
+n1 = 2^floor(log2(n) / 2), each transform being row kernels (ntt_rows)
+around two transposes, every pointwise pass fused into an adjacent row
+kernel:
+  - c = a o b rides the first iNTT kernel of the c chain (pre-multiply),
+  - the twiddle t3_inv (1/n folded in) rides the n1 iNTT kernel (post),
+  - the n2 iNTT stages, the coset multiply and the n2 NTT stages share one
+    kernel (K4's mid mode: they sit in the same layout),
+  - t3_fwd rides the final n1 NTT kernel (pre-multiply),
+  - ab = a o b rides the b chain's final kernel (post-multiply), and
+    ab - c the c chain's final kernel (post-subtract).
+The iNTT runs decimation in frequency (natural in, bit-reversed out) and the
+NTT decimation in time (bit-reversed in, natural out), so the bit
+reversals cancel; the tables are pre-permuted on the host instead.
+Transposes are torch ops. Output is lazy [0, 2p); consumers canonicalize.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..constants import R_SCALAR, fr_root_of_unity
+from . import field_kernels as fk
+from . import segments
+
+MONT_R = 1 << 256
+
+
+def _power_table(w: int, n: int, scale: int = 1) -> np.ndarray:
+    """[scale * w^i for i < n] in Montgomery form as (n, 8) int32 words."""
+    acc = scale * MONT_R % R_SCALAR
+    w %= R_SCALAR
+    buf = bytearray()
+    for _ in range(n):
+        buf += acc.to_bytes(32, "little")
+        acc = acc * w % R_SCALAR
+    return np.frombuffer(bytes(buf), dtype="<i4").reshape(n, 8).copy()
+
+
+def _rev(m: int) -> np.ndarray:
+    log_m = m.bit_length() - 1
+    idx = np.arange(m, dtype=np.int64)
+    out = np.zeros(m, dtype=np.int64)
+    for b in range(log_m):
+        out |= ((idx >> b) & 1) << (log_m - 1 - b)
+    return out
+
+
+class NTTPlan:
+    """Host tables of the four-step witness map for one domain size, staged
+    to a device once per device (`tables`)."""
+
+    def __init__(self, n: int):
+        if n < 2 or n & (n - 1):
+            raise ValueError("domain size must be a power of two >= 2")
+        self.n = n
+        self.log_n = n.bit_length() - 1
+        self.n1 = 1 << (self.log_n // 2)
+        self.n2 = n // self.n1
+        self._staged: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def _t3(self, inverse: bool) -> np.ndarray:
+        """(n2, n1) twiddle of the middle step, entry (j2, k1) =
+        w^(j2 * rev1(k1)); the inverse carries the 1/n scale."""
+        root = fr_root_of_unity(self.n)
+        w = pow(root, -1, R_SCALAR) if inverse else root
+        scale = pow(self.n, -1, R_SCALAR) if inverse else 1
+        tbl = _power_table(w, self.n, scale)
+        idx = (np.arange(self.n2)[:, None] * _rev(self.n1)[None, :]) % self.n
+        return tbl[idx.reshape(-1)].reshape(self.n2, self.n1, 8)
+
+    def _coset4(self) -> np.ndarray:
+        """Coset powers g^i (g the 2n-th root of unity) permuted to the
+        (n1, n2) layout: entry (a, b) holds g^(rev1(a) + n1 * rev2(b))."""
+        coset = _power_table(fr_root_of_unity(2 * self.n), self.n)
+        idx = _rev(self.n1)[:, None] + self.n1 * _rev(self.n2)[None, :]
+        return coset[idx.reshape(-1)].reshape(self.n1, self.n2, 8)
+
+    def _row_table(self, m: int, inverse: bool) -> np.ndarray:
+        w = pow(fr_root_of_unity(self.n), self.n // m, R_SCALAR)
+        if inverse:
+            w = pow(w, -1, R_SCALAR)
+        return _power_table(w, max(m // 2, 1))
+
+    def host_tables(self) -> Dict[str, np.ndarray]:
+        return {
+            "tw1_inv": self._row_table(self.n1, True),
+            "tw1_fwd": self._row_table(self.n1, False),
+            "tw2_inv": self._row_table(self.n2, True),
+            "tw2_fwd": self._row_table(self.n2, False),
+            "t3_inv": self._t3(True),
+            "t3_fwd": self._t3(False),
+            "coset4": self._coset4(),
+        }
+
+    def tables(self, device) -> Dict[str, torch.Tensor]:
+        key = str(torch.device(device))
+        if key not in self._staged:
+            self._staged[key] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                                 for k, v in self.host_tables().items()}
+        return self._staged[key]
+
+
+@lru_cache(maxsize=4)
+def get_plan(n: int) -> NTTPlan:
+    return NTTPlan(n)
+
+
+def sparse_eval(rows, cols, vals, assignment_mont, num_rows: int, ops=fk.KERNELS):
+    """Row sums sum_j vals[j] * w[cols[j]] over rows sorted ascending:
+    one Fr multiply, then a segmented reduce by row."""
+    prods = ops.fr_binary("mul", vals, assignment_mont[cols])
+    zero = torch.zeros(8, dtype=torch.int32, device=vals.device)
+    return segments.reduce_by_sorted_key(
+        lambda a, b: ops.fr_binary("add", a, b), prods, rows, num_rows, zero,
+        ops.fr_tile_scan, ops.fr_tile_scan)
+
+
+def witness_map(plan: NTTPlan, a_rows, a_cols, a_vals, b_rows, b_cols, b_vals,
+                assignment_mont, num_constraints: int, num_inputs: int, ops=fk.KERNELS):
+    """HZ evaluations (Montgomery, lazy) of the CircomReduction witness map.
+    `ops` is the kernel set (field_kernels.KERNELS, or PLAIN to run the
+    plain versions on the same device)."""
+    a = sparse_eval(a_rows, a_cols, a_vals, assignment_mont, plan.n, ops)
+    b = sparse_eval(b_rows, b_cols, b_vals, assignment_mont, plan.n, ops)
+    a[num_constraints : num_constraints + num_inputs] = assignment_mont[:num_inputs]
+    return witness_map_from_ab(plan, a, b, ops)
+
+
+def witness_map_from_ab(plan: NTTPlan, a: torch.Tensor, b: torch.Tensor, ops=fk.KERNELS):
+    """The six transforms and pointwise products, given A and B evaluated
+    on the domain ((n, 8) Montgomery words)."""
+    n, n1, n2 = plan.n, plan.n1, plan.n2
+    tb = plan.tables(a.device)
+    rows = ops.ntt_rows
+
+    def t_n1major(x):  # (n1, n2) element order -> rows of n1
+        return x.reshape(n1, n2, 8).transpose(0, 1).contiguous()
+
+    def t_n2major(x):  # rows of n1 -> rows of n2
+        return x.reshape(n2, n1, 8).transpose(0, 1).contiguous()
+
+    def half_chain(xT, pre=None):
+        x = rows(xT, tw_dif=tb["tw1_inv"], pre=pre, post=tb["t3_inv"])
+        x = rows(t_n2major(x), tw_dif=tb["tw2_inv"], mid=tb["coset4"], tw_dit=tb["tw2_fwd"])
+        return t_n1major(x)
+
+    aT, bT = t_n1major(a), t_n1major(b)
+    a5 = half_chain(aT)
+    b5 = half_chain(bT)
+    c5 = half_chain(bT, pre=aT)  # transpose(c) = transpose(a) o transpose(b)
+    a6 = rows(a5, tw_dit=tb["tw1_fwd"], pre=tb["t3_fwd"])
+    ab6 = rows(b5, tw_dit=tb["tw1_fwd"], pre=tb["t3_fwd"], post=a6)
+    res = rows(c5, tw_dit=tb["tw1_fwd"], pre=tb["t3_fwd"], post=ab6, post_op="sub")
+    return t_n2major(res).reshape(n, 8)

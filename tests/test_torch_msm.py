@@ -1,0 +1,119 @@
+"""circom_compat_tpu_torch MSM (ops/msm.py) against the JAX package.
+
+Window digits, the window-bit choice and the Pippenger window sums of the
+port (all windows of all MSMs over one group in one bucket reduce) are held
+against msm.window_digits, msm.pick_window_bits and
+msm.window_sums_affine_impl (XLA) at about 300 points with w = 8, and the
+folded MSMs against sum_i s_i P_i on the host. Inputs (scalars, points with
+infinity rows, zero scalars) come from a numpy seed and are fed to both
+packages. Tolerance: exact equality of affine group elements.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from circom_compat_tpu.constants import R_SCALAR
+from circom_compat_tpu.ops import curve_jax as cj
+from circom_compat_tpu.ops import msm as jmsm
+from circom_compat_tpu_torch.ops import curve as cv
+from circom_compat_tpu_torch.ops import limbs as tl
+from circom_compat_tpu_torch.ops import msm as tmsm
+from circom_compat_tpu_torch.refmath import curve as rc
+
+# The plain versions run many small tensor ops: one thread per test process
+# keeps parallel test workers from oversubscribing the cores.
+torch.set_num_threads(1)
+RNG = np.random.default_rng(0x3D5)
+N = 300
+WBITS = 8
+
+
+def _scalars(n):
+    vals = [int.from_bytes(RNG.bytes(32), "little") % R_SCALAR for _ in range(n)]
+    vals[1] = 0
+    vals[2] = R_SCALAR - 1
+    return vals
+
+
+def _points(g2, n):
+    grp, gen = (rc.G2, rc.g2_generator()) if g2 else (rc.G1, rc.g1_generator())
+    pool = [grp.mul(gen, int(k)) for k in RNG.integers(1, 1 << 62, size=16)]
+    pts = [pool[i] for i in RNG.integers(0, 16, size=n)]
+    pts[0] = pts[7] = None
+    return grp, pts
+
+
+def _xy(g2, pts):
+    return torch.from_numpy(cv.encode_g2_affine(pts) if g2 else cv.encode_g1_affine(pts))
+
+
+def _jax_window_sums(g2, xy, scalars):
+    F = cj.FQ2_ADAPTER if g2 else cj.FQ_ADAPTER
+    u16 = np.ascontiguousarray(xy.numpy()).view("<u2")
+    sc = jnp.asarray(np.ascontiguousarray(scalars.numpy()).view("<u2").astype(np.uint32))
+    fn = jax.jit(jmsm.window_sums_affine_impl, static_argnums=(0, 4, 5, 6))
+    sums = fn(F, jnp.asarray(u16[:, 0]), jnp.asarray(u16[:, 1]), sc, WBITS, jmsm.CHUNK_POINTS, False)
+    return cj.decode_g2_proj(sums) if g2 else cj.decode_g1_proj(sums)
+
+
+@pytest.mark.parametrize("wbits", [8, 13])
+def test_window_digits_vs_jax(wbits):
+    sc = torch.from_numpy(tl.ints_to_words(_scalars(64)))
+    got = tmsm.window_digits(sc, wbits)
+    limbs = jnp.asarray(np.ascontiguousarray(sc.numpy()).view("<u2").astype(np.uint32))
+    assert got.tolist() == np.asarray(jmsm.window_digits(limbs, wbits)).tolist()
+    orders, keys = tmsm.window_orders(sc, wbits)
+    assert torch.equal(torch.gather(got, 1, orders), keys)
+    assert bool((keys[:, 1:] >= keys[:, :-1]).all())
+
+
+def test_pick_window_bits_matches_jax():
+    for log_n in (8, 10, 14, 16, 20, 22):
+        assert tmsm.pick_window_bits(1 << log_n) == jmsm.pick_window_bits(1 << log_n)
+    assert tmsm.pick_window_bits(1 << 20) == 13
+
+
+def test_g1_window_sums_vs_jax_and_host():
+    """Two G1 MSMs through one batched bucket reduce; each window sum equals
+    the JAX package's, and each Horner fold equals sum_i s_i P_i."""
+    grp, pts_a = _points(False, N)
+    _, pts_b = _points(False, N // 2)
+    sc_a, sc_b = _scalars(N), _scalars(N // 2)
+    wa, wb = (torch.from_numpy(tl.ints_to_words(s)) for s in (sc_a, sc_b))
+    xa, xb = _xy(False, pts_a), _xy(False, pts_b)
+    sums = tmsm.window_sums([xa, xb], [tmsm.window_orders(wa, WBITS), tmsm.window_orders(wb, WBITS)],
+                            WBITS)
+    assert sums.shape == (2, tmsm.num_windows(WBITS), 3, 8)
+    got_a = cv.decode_g1_proj(sums[0])
+    assert got_a == _jax_window_sums(False, xa, wa)
+    for got, pts, sc in ((got_a, pts_a, sc_a), (cv.decode_g1_proj(sums[1]), pts_b, sc_b)):
+        want = None
+        for p, s in zip(pts, sc):
+            want = grp.add(want, grp.mul(p, s) if p is not None else None)
+        assert tmsm.fold_windows_host(got, grp, WBITS) == want
+
+
+def test_g2_msm_vs_host():
+    """w = 5 keeps the plain G2 bucket scans short on the CPU."""
+    grp, pts = _points(True, 120)
+    sc = _scalars(120)
+    w = torch.from_numpy(tl.ints_to_words(sc))
+    sums = tmsm.window_sums([_xy(True, pts)], [tmsm.window_orders(w, 5)], 5)[0]
+    want = None
+    for p, s in zip(pts, sc):
+        if p is not None:
+            want = grp.add(want, grp.mul(p, s))
+    assert tmsm.fold_windows_host(cv.decode_g2_proj(sums), grp, 5) == want
+
+
+@pytest.mark.slow
+def test_g2_window_sums_vs_jax():
+    """The XLA build of the G2 window sums takes about two minutes here."""
+    _, pts = _points(True, N)
+    w = torch.from_numpy(tl.ints_to_words(_scalars(N)))
+    xy = _xy(True, pts)
+    sums = tmsm.window_sums([xy], [tmsm.window_orders(w, WBITS)], WBITS)[0]
+    assert cv.decode_g2_proj(sums) == _jax_window_sums(True, xy, w)
