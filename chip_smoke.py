@@ -16,11 +16,27 @@ Phases (each passes or raises; nothing is caught):
      knows A, B and C exactly; h is also held against the plain witness
      map run on the card;
   5. golden: chain254 proved from tests/golden/chain254.zkey must equal
-     tests/golden/chain254_proof.json and verify.
+     tests/golden/chain254_proof.json and verify;
+  6. the small-circuit path at a 2^13 domain: setup on the card
+     (generate_parameters_from_matrices, self-check included) -> write_zkey
+     -> read_zkey -> DeviceProvingKey.build -> prove_prepared, which must go
+     through the flat NTT chain (fr_butterfly_stage launched, no ntt_rows
+     mid launch); h against the plain witness map, the proof verified by
+     pairing and a wrong public input refused; the steady-state prove and
+     the flat chain timed beside the four-step chain at the same size;
+  7. setup on the card at 2^20 for phase 4's circuit, by stage, with its
+     peak device memory; the 2^20 proof made with that key verified by
+     pairing;
+  8. the K9 microbenchmark (ops/field_bench.run): G ops/s of each Fq op.
+Phases 2-3 also hold the flat chain's stage kernel (2^13 and 2^20), the Fq
+binary modes (2^20) and the K9 op chain (2^16 elements, K = 64) against
+their plain versions. Each kernel's launches are counted on the path that
+runs it (phase 4, 6 or 7, or 8 for K9), the counts set to 0 just before.
 The kernels line (JSON) and then the result line close the output.
 Exits non-zero, printing no result, when there is no CUDA device.
 """
 
+import io
 import json
 import random
 import statistics
@@ -33,6 +49,8 @@ import numpy as np
 
 SEED = 20
 LOG_N = 20
+LOG_SMALL = 13  # phase 6: the largest domain of the flat chain
+K9_N, K9_K = 1 << 16, 64
 POOL = 509  # distinct points (and discrete logs) of the synthetic key
 
 
@@ -171,11 +189,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
 
     from circom_compat_tpu_torch import _build
     from circom_compat_tpu_torch.constants import R_SCALAR
     from circom_compat_tpu_torch.ops import curve as cv
     from circom_compat_tpu_torch.ops import curve_kernels as ck
+    from circom_compat_tpu_torch.constants import Q
+    from circom_compat_tpu_torch.ops import field as fl
+    from circom_compat_tpu_torch.ops import field_bench as fbn
     from circom_compat_tpu_torch.ops import field_kernels as fk
     from circom_compat_tpu_torch.ops import limbs as lc
     from circom_compat_tpu_torch.ops import msm, ntt
@@ -214,15 +236,18 @@ def main() -> int:
     R = R_SCALAR
     results = {}
 
-    def lazy_fr(count):
-        """count random lazy Fr words in [0, 2r), led by 0, 1, r-1, 2r-1:
-        a top word below 2r's (0x60c89ce5) keeps the value below 2r."""
+    def lazy_fr(count, p=R):
+        """count random lazy words in [0, 2p) (p = r or q), led by 0, 1,
+        p-1, 2p-1: a top word below 0x60c89ce5 (the top word of both 2r and
+        2q) keeps the value below 2p."""
         x = torch.randint(-2**31, 2**31, (count, 8), dtype=torch.int32, device=dev, generator=gen)
         x[:, 7] = torch.remainder(x[:, 7].to(torch.int64), 0x60C89CE5).to(torch.int32)
-        x[:4] = torch.tensor(lc.ints_to_words([0, 1, R - 1, 2 * R - 1]), device=dev)
+        x[:4] = torch.tensor(lc.ints_to_words([0, 1, p - 1, 2 * p - 1]), device=dev)
         return x
 
     def check(name, kernel_fn, plain_fn, reps, nbytes, mads, replaces, source, note=""):
+        """Kernel vs plain on the same inputs (word for word), then the
+        kernel's time; the first check of a name makes its kernels row."""
         torch.cuda.synchronize()
         got = kernel_fn()
         want, plain_ms = once_ms(plain_fn)
@@ -277,6 +302,43 @@ def main() -> int:
           lambda: fk.ntt_rows_plain(x4, tw_dif=tb["tw2_inv"], mid=mid, tw_dit=tb["tw2_fwd"]),
           10, 96 * n, MAD * (2 * stages + n), f"{FP}:432", FSRC)
     del a, b, vt, ft, x3, pre, post, x4
+
+    # K5a/K5b: one stage of the flat chain, at the 2^13 path's shape (a
+    # transform's first DIF and last DIT stage: 4096 butterflies) and at
+    # 2^20 for a rate; 160 B and one multiply per butterfly
+    for log_m in (LOG_SMALL, LOG_N):
+        m = 1 << log_m
+        ftb = ntt.get_plan(m).tables(dev, "flat")
+        xs = lazy_fr(m)
+        for dif in (True, False):
+            tw = ftb["tw_inv" if dif else "tw_fwd"]
+            check("fr_butterfly_stage", lambda: fk.fr_butterfly_stage(xs, tw, m // 2, dif),
+                  lambda: fk.fr_butterfly_stage_plain(xs, tw, m // 2, dif),
+                  50, 160 * m // 2, MAD * m // 2,
+                  f"{FP}:276 (K5a), {FP}:169 (K5b, the DIT mode)", FSRC,
+                  f" {'DIF' if dif else 'DIT'} n=2^{log_m}, half {m // 2}")
+        del xs
+
+    # K1's Fq mode (the setup's affine conversion and on-curve check)
+    a, b = lazy_fr(n, Q), lazy_fr(n, Q)
+    for op in ("mul", "mul_canon", "add", "sub"):
+        check("f_binary_fq", lambda: fk.fr_binary(op, a, b, fl.FQ),
+              lambda: fk.fr_binary_plain(op, a, b, fl.FQ),
+              20, 96 * n, (MAD if op.startswith("mul") else 0) * n, f"{FP}:84", FSRC, f" {op}")
+    elem = a[5].clone()
+    check("f_binary_fq", lambda: fk.fr_binary("mul", a, elem, fl.FQ),
+          lambda: fk.fr_binary_plain("mul", a, elem, fl.FQ),
+          20, 64 * n, MAD * n, f"{FP}:84", FSRC, " mul by one broadcast element")
+    del a, b
+
+    # K9: K dependent steps of one Fq op per element
+    ka, kb = fbn.operands(K9_N, device=dev)
+    for op in fbn.OPS:
+        check("fq_op_chain", lambda: fbn.fq_op_chain(op, ka, kb, K9_K),
+              lambda: fbn.fq_op_chain_plain(op, ka, kb, K9_K),
+              10, 96 * K9_N, fbn.INT_OPS[op] * K9_K * K9_N,
+              "scripts/bench_field_ops.py:79", FSRC, f" {op}, n=2^16, K={K9_K}")
+    del ka, kb
 
     ks, g1_pool, g2_pool = point_pools(rng)
 
@@ -358,10 +420,16 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {**fk.LAUNCHES, **ck.LAUNCHES}
     print(f"[4] window bits {wbits}; launches in one prove: {json.dumps(launches)}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} did not launch on the main path")
-        results[name]["launches"] = count
+
+    def take_launches(counts, names, path):
+        """The counts of `names` on one path: each must be > 0."""
+        for name in names:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} did not launch on {path}")
+            results[name]["launches"] = counts[name]
+
+    take_launches(launches, ["fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid",
+                             *ck.LAUNCHES], "the 2^20 prove")
 
     totals, stages_all = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -412,6 +480,124 @@ def main() -> int:
     assert Groth16.verify_proof(gpk.vk, gp, c254.get_public_inputs())
     print("[5] chain254 golden proof reproduced on the card and verified")
 
+    # ---- 6. the small-circuit path at 2^13 (flat NTT chain) ------------------
+    from circom_compat_tpu_torch.circom.zkey_writer import write_zkey
+    from circom_compat_tpu_torch.models import generate_parameters_from_matrices
+
+    def reset_all():
+        fk.reset_launches()
+        ck.reset_launches()
+        fbn.reset_launches()
+
+    def counts():
+        return {**fk.LAUNCHES, **ck.LAUNCHES, **fbn.LAUNCHES}
+
+    def toxic():
+        return dict(zip(("alpha", "beta", "gamma", "delta", "t"),
+                        (rng.randrange(1, R) for _ in range(5))))
+
+    cs = chain_circuit(k=(1 << LOG_SMALL) - 2, a=7)
+    reset_all()
+    st6 = {}
+    t0 = time.perf_counter()
+    pk6 = generate_parameters_from_matrices(cs.a, cs.b, cs.c, cs.num_inputs, cs.num_variables,
+                                            device=dev, stage_times=st6, **toxic())
+    setup6 = time.perf_counter() - t0
+    print(f"[6] setup at 2^{LOG_SMALL} on the card (self-check passed): {setup6:.4f} s; stages (s): "
+          + json.dumps({k2: round(v, 4) for k2, v in st6.items()}))
+    print(f"[6] setup launches: {json.dumps(counts())}")
+    buf = io.BytesIO()
+    write_zkey(buf, pk6, cs.a, cs.b, cs.num_constraints)
+    buf.seek(0)
+    pk6r, m6 = read_zkey(buf)
+    dpk6 = gd.DeviceProvingKey.build(pk6r, m6, m6.num_constraints, device=dev)
+    asg6 = cs.full_assignment()
+    r6, s6 = rng.randrange(R), rng.randrange(R)
+    reset_all()
+    proof6 = gd.prove_prepared(dpk6, r6, s6, asg6)
+    torch.cuda.synchronize()
+    launches6 = counts()
+    print(f"[6] zkey of {len(buf.getvalue())} B written and read back; launches in one prove: "
+          f"{json.dumps(launches6)}")
+    if launches6["ntt_rows_mid"] != 0:
+        raise AssertionError("the 2^13 prove ran the four-step chain")
+    take_launches(launches6, ["fr_butterfly_stage"], "the 2^13 prove")
+    asg6_mont = fk.fr_to_mont(torch.from_numpy(gd.encode_assignment(asg6)).to(dev))
+    h6 = fk.fr_from_mont(gd.witness_map(dpk6, asg6_mont))
+    h6_plain = fk.fr_binary_plain("mul_canon", gd.witness_map(dpk6, asg6_mont, ops=fk.PLAIN),
+                                  torch.tensor(lc.ints_to_words([1])[0], device=dev))
+    if max_abs_err(h6, h6_plain) != 0:
+        raise AssertionError("2^13 witness map differs from its plain version on the card")
+    pub6 = cs.get_public_inputs()
+    if not Groth16.verify_proof(pk6.vk, proof6, pub6):
+        raise AssertionError("the 2^13 proof does not verify")
+    if Groth16.verify_proof(pk6.vk, proof6, [(pub6[0] + 1) % R]):
+        raise AssertionError("the 2^13 proof verifies a wrong public input")
+    print("[6] h equals the plain witness map; the proof verifies by pairing; a wrong public "
+          "input is refused")
+    totals6, stages6 = [], []
+    for _ in range(3):
+        st = {}
+        t1 = time.perf_counter()
+        gd.prove_prepared(dpk6, r6, s6, asg6, stage_times=st)
+        totals6.append(time.perf_counter() - t1)
+        stages6.append(st)
+    print(f"[6] steady-state prove at 2^{LOG_SMALL}: median {statistics.median(totals6):.4f} s of "
+          f"{totals6} ({card}); stages (median s): "
+          + json.dumps({k2: round(statistics.median(x[k2] for x in stages6), 5) for k2 in stages6[0]}))
+    plan6 = ntt.get_plan(1 << LOG_SMALL)
+    a6, b6 = lazy_fr(plan6.n), lazy_fr(plan6.n)
+    flat_h, flat_ms = timed(lambda: ntt.witness_map_flat(plan6, a6, b6), 20)
+    four_h, four_ms = timed(lambda: ntt.witness_map_four_step(plan6, a6, b6), 20)
+    if max_abs_err(fk.fr_from_mont(flat_h), fk.fr_from_mont(four_h)) != 0:
+        raise AssertionError("flat and four-step chains differ at 2^13")
+    print(f"[6] witness-map transforms at 2^{LOG_SMALL}: flat chain {flat_ms:.4f} ms "
+          f"(33 launches), four-step chain {four_ms:.4f} ms (9 row launches + transposes); "
+          "equal results")
+    del dpk6, a6, b6, flat_h, four_h
+    torch.cuda.empty_cache()
+
+    # ---- 7. setup on the card at 2^20 (phase 4's circuit), then a verified prove
+    reset_all()
+    torch.cuda.reset_peak_memory_stats()
+    st7 = {}
+    t0 = time.perf_counter()
+    pk7 = generate_parameters_from_matrices(circuit.a, circuit.b, circuit.c, circuit.num_inputs,
+                                            circuit.num_variables, device=dev, stage_times=st7,
+                                            **toxic())
+    setup7 = time.perf_counter() - t0
+    launches7 = counts()
+    print(f"[7] setup at 2^{LOG_N} on the card (self-check passed): {setup7:.4f} s; peak device "
+          f"memory {torch.cuda.max_memory_allocated()} B; stages (s): "
+          + json.dumps({k2: round(v, 4) for k2, v in st7.items()}))
+    print(f"[7] setup launches: {json.dumps(launches7)}")
+    take_launches(launches7, ["f_binary_fq"], "the 2^20 setup")
+    for name in ("fr_binary", "point_add_g1", "point_add_g2"):
+        if launches7[name] <= 0:
+            raise AssertionError(f"kernel {name} did not launch in the 2^20 setup")
+    dpk7 = gd.DeviceProvingKey.from_matrix_rows(pk7, circuit.a, circuit.b, circuit.num_inputs,
+                                                circuit.num_constraints, device=dev)
+    t1 = time.perf_counter()
+    proof7 = gd.prove_prepared(dpk7, r_, s_, asg, wbits)
+    prove7 = time.perf_counter() - t1
+    if not Groth16.verify_proof(pk7.vk, proof7, circuit.get_public_inputs()):
+        raise AssertionError("the 2^20 proof made with the card's setup key does not verify")
+    print(f"[7] 2^{LOG_N} proof with the card's setup key ({prove7:.4f} s, first prove on this key) "
+          "verifies by pairing")
+    del dpk7, pk7
+    torch.cuda.empty_cache()
+
+    # ---- 8. K9: the per-op microbenchmark ------------------------------------
+    reset_all()
+    rates = fbn.run(K9_N, K9_K, device=dev)
+    take_launches(counts(), ["fq_op_chain"], "the K9 microbenchmark")
+    print(f"[8] K9 G ops/s (n=2^16, K={K9_K}; {card}): "
+          + json.dumps({k2: round(v, 3) for k2, v in rates.items()}))
+
+    missing = [k2 for k2, row in results.items() if row["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"no path counted launches of {missing}")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print("no PyTorch call computes these kernels' functions: library_ms is null")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -32,9 +32,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of every C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "field_kernels": {
-        "ccf_fr_binary": [_P, _P, _P, _L, _I, _I, _P],
+        "ccf_fr_binary": [_P, _P, _P, _L, _I, _I, _I, _P],
         "ccf_fr_tile_scan": [_P, _P, _P, _P, _L, _I, _P],
         "ccf_ntt_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
+        "ccf_fr_butterfly_stage": [_P, _P, _P, _L, _I, _I, _P],
+        "ccf_fq_op_chain": [_P, _P, _P, _L, _I, _I, _P],
     },
     "curve_kernels": {
         "ccf_point_add": [_I, _I, _P, _P, _P, _L, _P],

@@ -1,1 +1,1 @@
-"""Artifact layer: zkey reader and the host witness-map oracle."""
+"""Artifact layer: zkey reader and writer, and the host QAP oracles."""

@@ -80,3 +80,15 @@ def witness_map_from_matrices(
     c = poly.fft(c)
 
     return [(x - y) % R_SCALAR for x, y in zip(ab, c)]
+
+
+def h_query_scalars(max_power: int, t: int, delta_inverse: int) -> List[int]:
+    """Scalars of the H query at setup: delta^-1 * t^i Lagrange-ified over
+    the 2x domain, odd indices (reference: src/circom/qap.rs:90-105). The
+    host oracle of the setup's closed form (models/setup.py)."""
+    scalars = [delta_inverse * pow(t, i, R_SCALAR) % R_SCALAR for i in range(2 * max_power + 1)]
+    size = 1
+    while size < len(scalars):
+        size <<= 1
+    scalars += [0] * (size - len(scalars))
+    return poly.ifft(scalars)[1::2]

@@ -13,6 +13,7 @@
 //             both moduli, so the lazy range is closed under it.
 //   mul       mul_lazy + one conditional subtraction of p: canonical.
 //   add       a + b, minus 2p if >= 2p.
+//   add_canon a + b, minus p if >= p (canonical inputs only).
 //   sub       a - b + 2p, minus 2p if >= 2p.
 // These match ops/field.py word for word (CIOS's m is the unique m < R with
 // ab + mp = 0 mod R, whatever the digit width).
@@ -132,6 +133,12 @@ __device__ __forceinline__ Fe add_raw(const Fe& a, const Fe& b) {
 template <class F>
 __device__ __forceinline__ Fe add(const Fe& a, const Fe& b) {
   return cond_sub(add_raw(a, b), [](int j) { return F::P2(j); });
+}
+
+// a + b, minus p if >= p: canonical for canonical inputs (the K9 "add")
+template <class F>
+__device__ __forceinline__ Fe add_canon(const Fe& a, const Fe& b) {
+  return cond_sub(add_raw(a, b), [](int j) { return F::P(j); });
 }
 
 template <class F>

@@ -1,34 +1,105 @@
-// Fr kernels of the witness map: K1 fr_binary, K2 fr_tile_scan, K3/K4 ntt_rows.
+// Field kernels: K1 fr_binary (Fr and Fq), K2 fr_tile_scan, K3/K4 ntt_rows,
+// K5a/K5b fr_butterfly_stage, K9 fq_op_chain.
 //
 // Plain C entry points (ctypes, no torch headers). Each launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError().
-// Plain PyTorch versions: ops/field_kernels.py.
+// Plain PyTorch versions: ops/field_kernels.py, ops/field_bench.py (K9).
 #include "field.cuh"
 
 using namespace ccf;
 
 namespace {
 
-// ---- K1: elementwise Fr op ------------------------------------------------
-// Replaces field_pallas._bin_blocked (circom_compat_tpu/ops/field_pallas.py:79).
+// ---- K1: elementwise Fr or Fq op ------------------------------------------
+// Replaces field_pallas._bin_blocked (circom_compat_tpu/ops/field_pallas.py:79),
+// and in its Fq instance the XLA field ops of the JAX package's setup
+// (batch inversion, projective -> affine, on-curve check).
 // Bound: bytes. A mul moves 96 B per element (two reads, one write) against
 // 264 multiply-adds; at 3.35 TB/s and ~16.7 T int32 mad/s the memory side is
 // the larger term. Design: one thread per element, 16-byte vector loads of
 // neighbouring rows, nothing kept between elements.
-__global__ void fr_binary_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                                 uint32_t* __restrict__ o, long long n, int op, int b_bcast) {
+template <class F>
+__global__ void binary_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                              uint32_t* __restrict__ o, long long n, int op, int b_bcast) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Fe x = load(a + 8 * i);
   const Fe y = load(b + (b_bcast ? 0 : 8 * i));
   Fe r;
   switch (op) {
-    case 0: r = mul_lazy<Fr>(x, y); break;
-    case 1: r = mul<Fr>(x, y); break;
-    case 2: r = add<Fr>(x, y); break;
-    default: r = sub<Fr>(x, y); break;
+    case 0: r = mul_lazy<F>(x, y); break;
+    case 1: r = mul<F>(x, y); break;
+    case 2: r = add<F>(x, y); break;
+    default: r = sub<F>(x, y); break;
   }
   store(o + 8 * i, r);
+}
+
+// ---- K5a/K5b: one radix-2 stage over the whole vector ----------------------
+// Replaces field_pallas._butterfly_lm_blocked (field_pallas.py:272, K5a: DIT
+// or DIF over limb-major halves) and _butterfly_blocked (:165, K5b: the
+// row-major DIT butterfly). Butterfly j pairs i0 = (j / half) * 2 half +
+// j % half with i1 = i0 + half and takes the twiddle table[(j % half) *
+// tw_stride] of the n-th root table, so the JAX package's stage slices,
+// merge copies and broadcast twiddle array become this kernel's indexing.
+// DIT: (u + w v, u - w v); DIF: (u + v, (u - v) w). Lazy [0, 2p) in and out.
+// Bound: bytes, 160 B per butterfly (u, v, w read, two outputs written)
+// against one Montgomery multiply (264 multiply-adds). Design: one thread
+// per butterfly, 16-byte loads; a stage's halves are 32 * half bytes
+// apart, so neighbouring threads read neighbouring rows of each half.
+template <bool DIF>
+__global__ void butterfly_stage_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ tw,
+                                       uint32_t* __restrict__ out, long long pairs, int log_half,
+                                       long long tw_stride) {
+  const long long j = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (j >= pairs) return;
+  const long long half = 1LL << log_half;
+  const long long pos = j & (half - 1);
+  const long long i0 = ((j >> log_half) << (log_half + 1)) + pos;
+  const long long i1 = i0 + half;
+  const Fe u = load(x + 8 * i0);
+  const Fe v = load(x + 8 * i1);
+  const Fe w = load(tw + 8 * (pos * tw_stride));
+  if (DIF) {
+    store(out + 8 * i0, add<Fr>(u, v));
+    store(out + 8 * i1, mul_lazy<Fr>(w, sub<Fr>(u, v)));
+  } else {
+    const Fe t = mul_lazy<Fr>(w, v);
+    store(out + 8 * i0, add<Fr>(u, t));
+    store(out + 8 * i1, sub<Fr>(u, t));
+  }
+}
+
+// ---- K9: a K-step dependent chain of one Fq op per element -----------------
+// Replaces scripts/bench_field_ops.py run_op (:76, the pallas_call at :79):
+// acc = op(acc, b) K times, acc starting at a. Ops (bench_field_ops.py:45-65):
+// 0 mont_mul, 1 mont_mul_lazy, 2 add (mod p), 3 add_lazy, 4 sub_lazy,
+// 5 mul9 (8 acc + b by three doublings and one add, all lazy). Its
+// "normalize" op is a carry pass of 16-bit limbs in 32-bit lanes: 32-bit
+// words carry inside the multiply-add chain, so it has no counterpart.
+// Bound: operations, K dependent ops per element in registers against
+// 96 B of traffic. Design: one thread per element, the op chosen by a
+// template so the chain is straight-line code.
+template <int OP>
+__global__ void fq_op_chain_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                                   uint32_t* __restrict__ o, long long n, int k) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe acc = load(a + 8 * i);
+  const Fe y = load(b + 8 * i);
+  for (int s = 0; s < k; ++s) {
+    if (OP == 0) acc = mul<Fq>(acc, y);
+    if (OP == 1) acc = mul_lazy<Fq>(acc, y);
+    if (OP == 2) acc = add_canon<Fq>(acc, y);
+    if (OP == 3) acc = add<Fq>(acc, y);
+    if (OP == 4) acc = sub<Fq>(acc, y);
+    if (OP == 5) {
+      const Fe x2 = add<Fq>(acc, acc);
+      const Fe x4 = add<Fq>(x2, x2);
+      acc = add<Fq>(add<Fq>(x4, x4), y);
+    }
+  }
+  store(o + 8 * i, acc);
 }
 
 // ---- K2: within-tile segmented inclusive scan, lazy Fr add -----------------
@@ -130,11 +201,41 @@ inline unsigned blocks_for(long long n, int threads) { return (unsigned)((n + th
 
 extern "C" {
 
-int ccf_fr_binary(const void* a, const void* b, void* out, long long n, int op, int b_bcast, void* stream) {
+// field: 0 Fr, 1 Fq
+int ccf_fr_binary(const void* a, const void* b, void* out, long long n, int op, int b_bcast, int field,
+                  void* stream) {
   if (n > 0) {
     const int threads = 256;
-    fr_binary_kernel<<<blocks_for(n, threads), threads, 0, (cudaStream_t)stream>>>(
+    auto kernel = field ? binary_kernel<Fq> : binary_kernel<Fr>;
+    kernel<<<blocks_for(n, threads), threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, op, b_bcast);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x, out (n, 8) words; tw the (n/2, 8) table of the n-th root; half = 2^log_half
+int ccf_fr_butterfly_stage(const void* x, const void* tw, void* out, long long n, int log_half, int dif,
+                           void* stream) {
+  const long long pairs = n / 2;
+  if (pairs > 0) {
+    const int threads = 256;
+    const long long tw_stride = pairs >> log_half;
+    auto kernel = dif ? butterfly_stage_kernel<true> : butterfly_stage_kernel<false>;
+    kernel<<<blocks_for(pairs, threads), threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (const uint32_t*)tw, (uint32_t*)out, pairs, log_half, tw_stride);
+  }
+  return (int)cudaGetLastError();
+}
+
+int ccf_fq_op_chain(const void* a, const void* b, void* out, long long n, int op, int k, void* stream) {
+  if (n > 0) {
+    const int threads = 256;
+    void (*kernels[])(const uint32_t*, const uint32_t*, uint32_t*, long long, int) = {
+        fq_op_chain_kernel<0>, fq_op_chain_kernel<1>, fq_op_chain_kernel<2>,
+        fq_op_chain_kernel<3>, fq_op_chain_kernel<4>, fq_op_chain_kernel<5>};
+    if (op < 0 || op > 5) return (int)cudaErrorInvalidValue;
+    kernels[op]<<<blocks_for(n, threads), threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, k);
   }
   return (int)cudaGetLastError();
 }

@@ -1,1 +1,2 @@
-"""Field, curve, segmented-scan, MSM and NTT layers with their kernels."""
+"""Field, curve, segmented-scan, MSM, NTT and fixed-base layers with their
+kernels, and the Fq per-op microbenchmark (field_bench)."""

@@ -15,6 +15,7 @@ below 2^38). It is the same algorithm as csrc/field.cuh:
                  values stay closed over the lazy range [0, 2p).
   mont_mul       the same, then one conditional subtraction: canonical.
   add_lazy       a + b, minus 2p if >= 2p.
+  add            a + b, minus p if >= p (canonical inputs).
   sub_lazy       a - b + 2p, minus 2p if >= 2p.
 
 The m of each CIOS step makes xy + mp = 0 mod R with m < R; that m is
@@ -145,6 +146,11 @@ def mont_mul(F: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def add_lazy(F: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _cond_sub(_normalize(a + b), F.limbs(2 * F.modulus, a.device))
+
+
+def add(F: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b, minus p if >= p: canonical for canonical inputs."""
+    return _cond_sub(_normalize(a + b), F.limbs(F.modulus, a.device))
 
 
 def sub_lazy(F: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

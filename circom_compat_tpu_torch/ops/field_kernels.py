@@ -1,16 +1,21 @@
-"""Fr kernels of the witness map (csrc/field_kernels.cu) with their plain
-PyTorch versions.
+"""Field kernels of the witness map and the setup (csrc/field_kernels.cu)
+with their plain PyTorch versions.
 
-  fr_binary     K1  elementwise mul (lazy or canonical), add, sub mod 2p,
-                    one operand optionally a single broadcast element
-  fr_tile_scan  K2  within-tile segmented inclusive scan with lazy add
-  ntt_rows      K3  all radix-2 stages of each row (low mode) with fused
-                    pre-multiply and post-multiply / post-subtract
-                K4  the four-step middle: DIF stages, x mid, DIT stages
+  fr_binary           K1   elementwise mul (lazy or canonical), add, sub
+                           mod 2p over Fr, or over Fq (field=fl.FQ, the
+                           setup's affine conversion and on-curve check);
+                           one operand optionally a single broadcast element
+  fr_tile_scan        K2   within-tile segmented inclusive scan, lazy add
+  ntt_rows            K3   all radix-2 stages of each row (low mode) with
+                           fused pre-multiply and post-multiply / -subtract
+                      K4   the four-step middle: DIF stages, x mid, DIT
+  fr_butterfly_stage  K5a  one radix-2 stage (DIT or DIF) over the whole
+                      K5b  vector: the flat NTT chain's high stages
 
 Tensors are (..., 8) int32 words (ops/field.py). A wrapper given CPU
 tensors runs the plain version; given CUDA tensors it launches the kernel
-or raises. Each launch adds one to LAUNCHES[name].
+or raises. Each launch adds one to LAUNCHES[name] (fr_binary over Fq counts
+as "f_binary_fq").
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch
 from .. import _build
 from . import field as fl
 
-LAUNCHES = {"fr_binary": 0, "fr_tile_scan": 0, "ntt_rows_low": 0, "ntt_rows_mid": 0}
+LAUNCHES = {"fr_binary": 0, "f_binary_fq": 0, "fr_tile_scan": 0, "ntt_rows_low": 0,
+            "ntt_rows_mid": 0, "fr_butterfly_stage": 0}
 
 _OPS = {"mul": 0, "mul_canon": 1, "add": 2, "sub": 3}
 
@@ -60,28 +66,34 @@ def _stream(t: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 
-def fr_binary_plain(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def fr_binary_plain(op: str, a: torch.Tensor, b: torch.Tensor,
+                    field: fl.FieldSpec = fl.FR) -> torch.Tensor:
     x, y = fl.words_to_limbs(a), fl.words_to_limbs(b)
     fn = {"mul": fl.mont_mul_lazy, "mul_canon": fl.mont_mul,
           "add": fl.add_lazy, "sub": fl.sub_lazy}[op]
-    return fl.limbs_to_words(fn(fl.FR, x, y))
+    return fl.limbs_to_words(fn(field, x, y))
 
 
-def fr_binary(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (..., 8); b the same shape, or one (8,) element broadcast to all."""
+def fr_binary(op: str, a: torch.Tensor, b: torch.Tensor,
+              field: fl.FieldSpec = fl.FR) -> torch.Tensor:
+    """a (..., 8); b the same shape, or one (8,) element broadcast to all.
+    field: fl.FR (the witness map) or fl.FQ (point coordinates)."""
     _check(a, b)
     bcast = b.dim() == 1
     if not bcast and b.shape != a.shape:
         raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    if field not in (fl.FR, fl.FQ):
+        raise ValueError(f"unknown field {field.name}")
     if _build.runs_plain(a):
-        return fr_binary_plain(op, a, b)
+        return fr_binary_plain(op, a, b, field)
     out = torch.empty_like(a)
+    fq = field is fl.FQ
     with torch.cuda.device(a.device):
         rc = _build.lib("field_kernels").ccf_fr_binary(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // 8,
-            _OPS[op], int(bcast), _stream(a))
+            _OPS[op], int(bcast), int(fq), _stream(a))
     _build.check(rc, "fr_binary")
-    LAUNCHES["fr_binary"] += 1
+    LAUNCHES["f_binary_fq" if fq else "fr_binary"] += 1
     return out
 
 
@@ -214,6 +226,66 @@ def ntt_rows(x: torch.Tensor, tw_dif=None, tw_dit=None, pre=None, mid=None, post
     return out
 
 
+# ---------------------------------------------------------------------------
+# K5a / K5b fr_butterfly_stage
+# ---------------------------------------------------------------------------
+
+
+def fr_butterfly_plain(u: torch.Tensor, v: torch.Tensor, tw: torch.Tensor, dif: bool):
+    """Elementwise radix-2 butterfly over equally shaped (..., 8) words:
+    DIT (u + tw v, u - tw v), DIF (u + v, (u - v) tw); lazy in and out."""
+    F = fl.FR
+    x, y, w = fl.words_to_limbs(u), fl.words_to_limbs(v), fl.words_to_limbs(tw)
+    if dif:
+        return (fl.limbs_to_words(fl.add_lazy(F, x, y)),
+                fl.limbs_to_words(fl.mont_mul_lazy(F, w, fl.sub_lazy(F, x, y))))
+    t = fl.mont_mul_lazy(F, w, y)
+    return fl.limbs_to_words(fl.add_lazy(F, x, t)), fl.limbs_to_words(fl.sub_lazy(F, x, t))
+
+
+def _stage_index(n: int, half: int, device):
+    """(i0, twiddle index) of the n/2 butterflies of one stage."""
+    j = torch.arange(n // 2, device=device)
+    pos = j % half
+    return (j // half) * (2 * half) + pos, pos * (n // 2 // half)
+
+
+def fr_butterfly_stage_plain(x: torch.Tensor, table: torch.Tensor, half: int,
+                             dif: bool) -> torch.Tensor:
+    n = x.shape[0]
+    i0, ti = _stage_index(n, half, x.device)
+    i1 = i0 + half
+    o0, o1 = fr_butterfly_plain(x[i0], x[i1], table[ti], dif)
+    out = torch.empty_like(x)
+    out[i0], out[i1] = o0, o1
+    return out
+
+
+def fr_butterfly_stage(x: torch.Tensor, table: torch.Tensor, half: int, dif: bool) -> torch.Tensor:
+    """One radix-2 stage of an n-point transform over x (n, 8): butterfly j
+    pairs i0 = (j // half) * 2 half + j % half with i0 + half and takes
+    table[(j % half) * (n / 2 / half)], table (n/2, 8) the n-th root's
+    powers. DIT (dif=False) or DIF; returns a new (n, 8) tensor."""
+    _check(x, table)
+    n = x.shape[0]
+    if x.dim() != 2 or n < 2 or n & (n - 1):
+        raise ValueError(f"expected (2^k, 8) words, got {tuple(x.shape)}")
+    if table.shape != (n // 2, 8):
+        raise ValueError(f"twiddle table must be ({n // 2}, 8)")
+    if half < 1 or half & (half - 1) or half > n // 2:
+        raise ValueError(f"half {half} is not a power of two in [1, {n // 2}]")
+    if _build.runs_plain(x):
+        return fr_butterfly_stage_plain(x, table, half, dif)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _build.lib("field_kernels").ccf_fr_butterfly_stage(
+            x.data_ptr(), table.data_ptr(), out.data_ptr(), n, half.bit_length() - 1,
+            int(dif), _stream(x))
+    _build.check(rc, "fr_butterfly_stage")
+    LAUNCHES["fr_butterfly_stage"] += 1
+    return out
+
+
 class FieldOps(NamedTuple):
     """The witness map's kernel set; PLAIN swaps in the plain versions so a
     caller can hold a whole witness map on the card against them."""
@@ -221,7 +293,8 @@ class FieldOps(NamedTuple):
     fr_binary: object
     fr_tile_scan: object
     ntt_rows: object
+    fr_butterfly_stage: object
 
 
-KERNELS = FieldOps(fr_binary, fr_tile_scan, ntt_rows)
-PLAIN = FieldOps(fr_binary_plain, fr_tile_scan_plain, ntt_rows_plain)
+KERNELS = FieldOps(fr_binary, fr_tile_scan, ntt_rows, fr_butterfly_stage)
+PLAIN = FieldOps(fr_binary_plain, fr_tile_scan_plain, ntt_rows_plain, fr_butterfly_stage_plain)

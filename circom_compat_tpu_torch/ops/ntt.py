@@ -4,10 +4,23 @@ The witness map evaluates the A and B constraint rows on the assignment
 (two sparse row sums), puts the public inputs into A's tail, and returns
 HZ = [A(x)B(x) - C(x)] on the coset of the 2n-th root of unity, C = A o B:
 six transforms (iFFT and FFT of a, b and c) with the coset shift and the
-pointwise products between them.
+pointwise products between them. Two chains compute it, chosen by domain
+size as the JAX package chooses (circom_compat_tpu/ops/ntt.py:409, :451):
 
-Every domain size runs the four-step factorization n = n1 * n2 with
-n1 = 2^floor(log2(n) / 2), each transform being row kernels (ntt_rows)
+Flat chain (FLAT_MIN <= n < FOUR_STEP_MIN, witness_map_flat): each
+iFFT is decimation in frequency (natural in, bit-reversed out) and each FFT
+decimation in time (bit-reversed in, natural out), so the bit reversals
+cancel. A transform is its stages above LOW_BLOCK, one fr_butterfly_stage
+launch each (K5a), and its last log2(LOW_BLOCK) stages as one ntt_rows
+launch over rows of LOW_BLOCK (K3): those stages pair elements inside
+aligned blocks of LOW_BLOCK and take twiddles that are powers of the
+LOW_BLOCK-th root, so each block is an independent LOW_BLOCK-point
+transform. The coset table, bit-reversed and with 1/n folded in, rides the
+FFT's first row launch as its pre-multiply; c = a o b, ab = a o b and
+ab - c are fr_binary passes.
+
+Four-step chain (every other size, witness_map_four_step): n = n1 * n2
+with n1 = 2^floor(log2(n) / 2), each transform being row kernels (ntt_rows)
 around two transposes, every pointwise pass fused into an adjacent row
 kernel:
   - c = a o b rides the first iNTT kernel of the c chain (pre-multiply),
@@ -17,16 +30,15 @@ kernel:
   - t3_fwd rides the final n1 NTT kernel (pre-multiply),
   - ab = a o b rides the b chain's final kernel (post-multiply), and
     ab - c the c chain's final kernel (post-subtract).
-The iNTT runs decimation in frequency (natural in, bit-reversed out) and the
-NTT decimation in time (bit-reversed in, natural out), so the bit
-reversals cancel; the tables are pre-permuted on the host instead.
-Transposes are torch ops. Output is lazy [0, 2p); consumers canonicalize.
+Below FLAT_MIN the JAX package runs plain XLA; the port keeps its kernels
+there. Transposes are torch ops. Output is lazy [0, 2p); consumers
+canonicalize.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -36,6 +48,17 @@ from . import field_kernels as fk
 from . import segments
 
 MONT_R = 1 << 256
+LOW_BLOCK = 512  # row length of the flat chain's fused low stages
+# The JAX package's dispatch (its four-step bound is a Mosaic lane rule),
+# kept so that both packages run the same chain at each size; below
+# FLAT_MIN the JAX package leaves the kernels and the port does not.
+FLAT_MIN = 1024
+FOUR_STEP_MIN = 1 << 14
+
+
+def chain_for(n: int) -> str:
+    """The chain the witness map runs at domain size n."""
+    return "flat" if FLAT_MIN <= n < FOUR_STEP_MIN else "four_step"
 
 
 def _power_table(w: int, n: int, scale: int = 1) -> np.ndarray:
@@ -59,8 +82,8 @@ def _rev(m: int) -> np.ndarray:
 
 
 class NTTPlan:
-    """Host tables of the four-step witness map for one domain size, staged
-    to a device once per device (`tables`)."""
+    """Host tables of the witness map for one domain size, staged to a
+    device once per device and chain (`tables`)."""
 
     def __init__(self, n: int):
         if n < 2 or n & (n - 1):
@@ -69,7 +92,8 @@ class NTTPlan:
         self.log_n = n.bit_length() - 1
         self.n1 = 1 << (self.log_n // 2)
         self.n2 = n // self.n1
-        self._staged: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.chain = chain_for(n)
+        self._staged: Dict[tuple, Dict[str, torch.Tensor]] = {}
 
     def _t3(self, inverse: bool) -> np.ndarray:
         """(n2, n1) twiddle of the middle step, entry (j2, k1) =
@@ -94,7 +118,23 @@ class NTTPlan:
             w = pow(w, -1, R_SCALAR)
         return _power_table(w, max(m // 2, 1))
 
-    def host_tables(self) -> Dict[str, np.ndarray]:
+    def _coset_inv_bitrev(self) -> np.ndarray:
+        """Coset powers g^i with 1/n folded in, bit-reversed: position p
+        of a DIF output holds coefficient rev(p), which takes g^rev(p) / n."""
+        tbl = _power_table(fr_root_of_unity(2 * self.n), self.n, pow(self.n, -1, R_SCALAR))
+        return tbl[_rev(self.n)]
+
+    def host_tables(self, chain: str) -> Dict[str, np.ndarray]:
+        if chain == "flat":
+            if self.n < 2 * LOW_BLOCK:
+                raise ValueError(f"the flat chain needs n >= {2 * LOW_BLOCK}")
+            return {
+                "tw_inv": self._row_table(self.n, True),
+                "tw_fwd": self._row_table(self.n, False),
+                "low_inv": self._row_table(LOW_BLOCK, True),
+                "low_fwd": self._row_table(LOW_BLOCK, False),
+                "coset_inv_bitrev": self._coset_inv_bitrev(),
+            }
         return {
             "tw1_inv": self._row_table(self.n1, True),
             "tw1_fwd": self._row_table(self.n1, False),
@@ -105,11 +145,14 @@ class NTTPlan:
             "coset4": self._coset4(),
         }
 
-    def tables(self, device) -> Dict[str, torch.Tensor]:
-        key = str(torch.device(device))
+    def tables(self, device, chain: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        """The tables of `chain` ("flat" or "four_step"; default the chain
+        this size takes) on `device`, staged on first use."""
+        chain = chain or self.chain
+        key = (str(torch.device(device)), chain)
         if key not in self._staged:
             self._staged[key] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                                 for k, v in self.host_tables().items()}
+                                 for k, v in self.host_tables(chain).items()}
         return self._staged[key]
 
 
@@ -141,9 +184,71 @@ def witness_map(plan: NTTPlan, a_rows, a_cols, a_vals, b_rows, b_cols, b_vals,
 
 def witness_map_from_ab(plan: NTTPlan, a: torch.Tensor, b: torch.Tensor, ops=fk.KERNELS):
     """The six transforms and pointwise products, given A and B evaluated
-    on the domain ((n, 8) Montgomery words)."""
+    on the domain ((n, 8) Montgomery words), through the chain this size
+    takes (chain_for)."""
+    if plan.chain == "flat":
+        return witness_map_flat(plan, a, b, ops)
+    return witness_map_four_step(plan, a, b, ops)
+
+
+def ntt_flat_dif(x: torch.Tensor, tw: torch.Tensor, low: torch.Tensor,
+                 ops=fk.KERNELS) -> torch.Tensor:
+    """(n, 8) natural order -> bit-reversed DIF transform with the table
+    tw (n/2 powers of the root): the stages above LOW_BLOCK one stage
+    launch each, then the low stages in one row launch (table `low`, the
+    LOW_BLOCK-th root's powers). The counterpart of the JAX package's
+    ntt_lm_dif (circom_compat_tpu/ops/ntt.py:307)."""
+    n = x.shape[0]
+    half = n // 2
+    while half >= LOW_BLOCK:
+        x = ops.fr_butterfly_stage(x, tw, half, True)
+        half //= 2
+    rows = x.reshape(n // LOW_BLOCK, LOW_BLOCK, 8)
+    return ops.ntt_rows(rows, tw_dif=low).reshape(n, 8)
+
+
+def ntt_flat_dit(x: torch.Tensor, tw: torch.Tensor, low: torch.Tensor, ops=fk.KERNELS,
+                 pre=None) -> torch.Tensor:
+    """Bit-reversed (n, 8) -> natural DIT transform, the mirror of
+    ntt_flat_dif: the low stages first, in one row launch that also runs
+    the optional (n, 8) pre-multiply, then one stage launch per higher
+    stage. The counterpart of ntt_lm_dit (circom_compat_tpu/ops/ntt.py:281)."""
+    n = x.shape[0]
+    shape = (n // LOW_BLOCK, LOW_BLOCK, 8)
+    x = ops.ntt_rows(x.reshape(shape), tw_dit=low,
+                     pre=None if pre is None else pre.reshape(shape)).reshape(n, 8)
+    half = LOW_BLOCK
+    while half < n:
+        x = ops.fr_butterfly_stage(x, tw, half, False)
+        half *= 2
+    return x
+
+
+def witness_map_flat(plan: NTTPlan, a: torch.Tensor, b: torch.Tensor, ops=fk.KERNELS):
+    """The witness map's transforms through the flat chain: three iFFT ->
+    coset -> FFT chains (the coset table with 1/n rides each FFT's first
+    row launch) and three fr_binary passes, the sequence of the JAX
+    package's _witness_map_transforms_lm below FOUR_STEP_MIN
+    (circom_compat_tpu/ops/ntt.py:493-509). Needs n >= 2 * LOW_BLOCK."""
+    tb = plan.tables(a.device, "flat")
+
+    def ifft_coset_fft(x):
+        x = ntt_flat_dif(x, tb["tw_inv"], tb["low_inv"], ops)
+        return ntt_flat_dit(x, tb["tw_fwd"], tb["low_fwd"], ops, pre=tb["coset_inv_bitrev"])
+
+    c = ops.fr_binary("mul", a, b)
+    a = ifft_coset_fft(a)
+    b = ifft_coset_fft(b)
+    ab = ops.fr_binary("mul", a, b)
+    c = ifft_coset_fft(c)
+    return ops.fr_binary("sub", ab, c)
+
+
+def witness_map_four_step(plan: NTTPlan, a: torch.Tensor, b: torch.Tensor, ops=fk.KERNELS):
+    """The witness map's transforms through the four-step chain (any size
+    n >= 4)."""
     n, n1, n2 = plan.n, plan.n1, plan.n2
-    tb = plan.tables(a.device)
+    tb = plan.tables(a.device, "four_step")
     rows = ops.ntt_rows
 
     def t_n1major(x):  # (n1, n2) element order -> rows of n1

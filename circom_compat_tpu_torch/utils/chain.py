@@ -27,6 +27,14 @@ class ChainCircuit:
     def num_constraints(self) -> int:
         return len(self.a)
 
+    @property
+    def num_variables(self) -> int:
+        return len(self.witness)
+
+    def to_matrices(self) -> Tuple[List[Row], List[Row], List[Row]]:
+        """(A, B, C) row lists, the input of the setup (models/setup.py)."""
+        return self.a, self.b, self.c
+
     def full_assignment(self) -> List[int]:
         return self.witness
 

@@ -1,6 +1,7 @@
 """Card tests: every CUDA kernel of circom_compat_tpu_torch against its plain
-PyTorch version on the same CUDA tensors, word for word, and the chain254
-golden proof proved on the card.
+PyTorch version on the same CUDA tensors, word for word, the chain254
+golden proof proved on the card, and setup -> prove -> verify at a 2^13
+domain (the flat NTT chain) on the card.
 
 They need an NVIDIA GPU and skip without one. On a machine with a card:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider tests/test_torch_cuda.py
@@ -66,7 +67,7 @@ def test_ntt_rows(cuda, L):
     from circom_compat_tpu_torch.ops import ntt
 
     plan = ntt.get_plan(L * L)
-    tb = plan.tables(cuda)
+    tb = plan.tables(cuda, "four_step")
     rows = 3
     x, pre, post, mid = (_lazy_words(rows * L, R_SCALAR, cuda).reshape(rows, L, 8) for _ in range(4))
     cases = [
@@ -143,3 +144,58 @@ def test_chain254_golden_on_card(cuda):
     assert proof.b == tuple(tuple(int(v, 16) for v in c) for c in p["b"])
     assert proof.c == tuple(int(v, 16) for v in p["c"])
     assert Groth16.verify_proof(pk.vk, proof, circuit.get_public_inputs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["mul", "mul_canon", "add", "sub"])
+def test_fr_binary_fq(cuda, op):
+    from circom_compat_tpu_torch.constants import Q
+    from circom_compat_tpu_torch.ops import field as fl
+
+    a, b = _lazy_words(1000, Q, cuda), _lazy_words(1000, Q, cuda)
+    _same(fk.fr_binary(op, a, b, fl.FQ), fk.fr_binary_plain(op, a, b, fl.FQ))
+    _same(fk.fr_binary(op, a, b[3], fl.FQ), fk.fr_binary_plain(op, a, b[3], fl.FQ))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dif", [False, True])
+@pytest.mark.parametrize("n", [1024, 8192])
+def test_fr_butterfly_stage(cuda, dif, n):
+    from circom_compat_tpu_torch.ops import ntt
+
+    tw = ntt.get_plan(n).tables(cuda, "flat")["tw_inv" if dif else "tw_fwd"]
+    x = _lazy_words(n, R_SCALAR, cuda)
+    half = 1
+    while half < n:
+        _same(fk.fr_butterfly_stage(x, tw, half, dif), fk.fr_butterfly_stage_plain(x, tw, half, dif))
+        half *= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["mont_mul", "mont_mul_lazy", "add", "add_lazy", "sub_lazy", "mul9"])
+def test_fq_op_chain(cuda, op):
+    from circom_compat_tpu_torch.ops import field_bench as fbn
+
+    a, b = fbn.operands(1000, device=cuda)
+    _same(fbn.fq_op_chain(op, a, b, 9), fbn.fq_op_chain_plain(op, a, b, 9))
+
+
+@pytest.mark.cuda
+def test_setup_prove_verify_2_13_on_card(cuda):
+    """Setup on the card, then prove through the flat chain and verify."""
+    from circom_compat_tpu_torch.models import generate_parameters_from_matrices
+    from circom_compat_tpu_torch.models import groth16_device as gd
+    from circom_compat_tpu_torch.models.groth16 import Groth16
+    from circom_compat_tpu_torch.utils.chain import chain_circuit
+
+    c = chain_circuit(k=(1 << 13) - 2, a=5)
+    pk = generate_parameters_from_matrices(c.a, c.b, c.c, c.num_inputs, c.num_variables,
+                                           alpha=11, beta=12, gamma=13, delta=14, t=0xE1,
+                                           device=cuda)
+    dpk = gd.DeviceProvingKey.from_matrix_rows(pk, c.a, c.b, c.num_inputs, c.num_constraints,
+                                               device=cuda)
+    fk.reset_launches()
+    proof = gd.prove_prepared(dpk, 0x1234, 0x5678, c.full_assignment())
+    assert fk.LAUNCHES["fr_butterfly_stage"] > 0 and fk.LAUNCHES["ntt_rows_mid"] == 0
+    assert Groth16.verify_proof(pk.vk, proof, c.get_public_inputs())
+    assert not Groth16.verify_proof(pk.vk, proof, [c.get_public_inputs()[0] + 1])

@@ -128,7 +128,7 @@ def test_fr_tile_scan_vs_pallas():
 
 @pytest.mark.parametrize("L", [16, 128])
 def test_row_tables_match_jax_plan(L):
-    tb = tntt.get_plan(L * L).tables("cpu")
+    tb = tntt.get_plan(L * L).tables("cpu", "four_step")
     jplan = jntt.get_plan(L * L)
     for name in ("tw1_inv", "tw1_fwd", "tw2_inv", "tw2_fwd"):
         want = np.asarray(getattr(jplan, f"{name}_lm")).T
@@ -138,7 +138,7 @@ def test_row_tables_match_jax_plan(L):
 def _row_case(L, mode, rows=3):
     """(port result, JAX Pallas result) of one row-kernel mode on rows of L."""
     log = L.bit_length() - 1
-    tb = tntt.get_plan(L * L).tables("cpu")
+    tb = tntt.get_plan(L * L).tables("cpu", "four_step")
     jplan = jntt.get_plan(L * L)
 
     def stack(tbl):
@@ -175,7 +175,7 @@ def test_ntt_rows_is_a_transform():
     """One DIF row transform then the DIT inverse (with the 1/L scale as
     post-multiply) gives back the input: the row kernel's own semantics."""
     L, rows = 32, 2
-    tb = tntt.get_plan(L * L).tables("cpu")
+    tb = tntt.get_plan(L * L).tables("cpu", "four_step")
     x = _words(_rand(rows * L, R_SCALAR)).reshape(rows, L, 8)
     inv_l = _words([pow(L, -1, R_SCALAR) * MONT % R_SCALAR] * (rows * L)).reshape(rows, L, 8)
     fwd_then_back = fk.ntt_rows(fk.ntt_rows(x, tw_dif=tb["tw1_fwd"]), tw_dit=tb["tw1_inv"],

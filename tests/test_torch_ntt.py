@@ -1,14 +1,16 @@
 """circom_compat_tpu_torch witness map (ops/ntt.py) against the JAX package.
 
-The port runs the four-step chain of row kernels at every domain size; the
-JAX package's witness_map_impl on the CPU runs its XLA radix-2 path, and
+The port runs the four-step chain of row kernels below 1024 and from 2^14
+up, and the flat chain in between (tests/test_torch_flat_ntt.py); the JAX
+package's witness_map_impl on the CPU runs its XLA radix-2 path, and
 circom/qap.py is the host oracle of both. Held equal here:
-  - the NTTPlan tables (row roots, t3, coset4) against the JAX plan's, on a
-    square and a non-square split;
-  - witness_map on squaring-chain circuits at n = 256 and 1024 against
-    ntt.witness_map_impl and the JAX package's circom/qap.py;
-  - witness_map_from_ab on seeded vectors at n = 2048 against the JAX
-    package, and at n = 4 .. 64 against the port's own host oracle.
+  - the four-step NTTPlan tables (row roots, t3, coset4) against the JAX
+    plan's, on a square and a non-square split;
+  - witness_map on squaring-chain circuits at n = 256 (four-step) and 1024
+    (flat) against ntt.witness_map_impl and the JAX package's circom/qap.py;
+  - witness_map_four_step, called by name, on seeded vectors at n = 2048
+    against the JAX package, and witness_map at n = 4 .. 64 against the
+    port's own host oracle.
 Inputs come from a numpy seed. Tolerance: exact equality of canonical Fr
 values.
 """
@@ -54,7 +56,7 @@ def _jax_words(limbs):
 
 @pytest.mark.parametrize("n", [1024, 2048])
 def test_plan_tables_match_jax(n):
-    tb = tntt.get_plan(n).tables("cpu")
+    tb = tntt.get_plan(n).tables("cpu", "four_step")
     jp = jntt.get_plan(n)
     assert (tntt.get_plan(n).n1, tntt.get_plan(n).n2) == (jp.n1, jp.n2)
     for name in ("tw1_inv", "tw1_fwd", "tw2_inv", "tw2_fwd", "t3_inv", "t3_fwd", "coset4"):
@@ -93,10 +95,11 @@ def test_witness_map_vs_jax_and_qap(log_n):
 
 
 def test_witness_map_from_ab_vs_jax_non_square():
-    """n = 2048: n1 = 32 rows against n2 = 64 rows."""
+    """n = 2048: n1 = 32 rows against n2 = 64 rows. The four-step chain is
+    called by name: witness_map_from_ab takes the flat chain at this size."""
     n = 2048
     a, b = ([int.from_bytes(RNG.bytes(32), "little") % R_SCALAR for _ in range(n)] for _ in range(2))
-    got = tntt.witness_map_from_ab(tntt.get_plan(n), _mont_words(a), _mont_words(b))
+    got = tntt.witness_map_four_step(tntt.get_plan(n), _mont_words(a), _mont_words(b))
     want = jntt.witness_map_from_ab(jntt.get_plan(n), _to_jax(_mont_words(a)), _to_jax(_mont_words(b)))
     assert _canon_plain(got) == _canon_plain(_jax_words(want))
 
