@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases (each passes or raises; nothing is caught):
-  1. card: builds the CUDA kernels from csrc/ (nvcc, sm_90a) and prints the
-     card's name and power limit;
+  1. card: builds the CUDA kernels from csrc/ (nvcc, sm_90a), prints each
+     kernel's registers and spill bytes (ptxas) and the card's name and
+     power limit;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the 2^20-domain prove gives it, word for word (max_abs_err 0);
   3. each kernel's time (CUDA events, warmed up, averaged), its bound and
@@ -14,7 +15,8 @@ Phases (each passes or raises; nothing is caught):
      DeviceProvingKey.from_matrix_rows and prove_prepared, against a
      synthetic key whose every point has a known discrete log, so the host
      knows A, B and C exactly; h is also held against the plain witness
-     map run on the card;
+     map run on the card; after the timed proves, one prove under
+     torch.profiler: the top device kernels and the device's idle share;
   5. golden: chain254 proved from tests/golden/chain254.zkey must equal
      tests/golden/chain254_proof.json and verify;
   6. the small-circuit path at a 2^13 domain: setup on the card
@@ -24,6 +26,7 @@ Phases (each passes or raises; nothing is caught):
      mid launch); h against the plain witness map, the proof verified by
      pairing and a wrong public input refused; the steady-state prove and
      the flat chain timed beside the four-step chain at the same size;
+     one prove under torch.profiler as in phase 4;
   7. setup on the card at 2^20 for phase 4's circuit, by stage, with its
      peak device memory; the 2^20 proof made with that key verified by
      pairing;
@@ -32,7 +35,8 @@ Phases 2-3 also hold the flat chain's stage kernel (2^13 and 2^20), the Fq
 binary modes (2^20) and the K9 op chain (2^16 elements, K = 64) against
 their plain versions. Each kernel's launches are counted on the path that
 runs it (phase 4, 6 or 7, or 8 for K9), the counts set to 0 just before.
-The kernels line (JSON) and then the result line close the output.
+The kernels line (JSON; the K8 entries also carry ptxas's registers and
+spill bytes per mode) and then the result line close the output.
 Exits non-zero, printing no result, when there is no CUDA device.
 """
 
@@ -101,6 +105,47 @@ def max_abs_err(a, b, chunk=1 << 26):
         ub = fb[i : i + chunk].to(torch.int64) & 0xFFFFFFFF
         err = max(err, int((ua - ub).abs().max().item()))
     return err
+
+
+def profile_prove(fn, phase, label, top=12):
+    """Runs fn() (one prove) once under torch.profiler with CUDA activity and
+    prints the device kernels by total time and the device's idle share over
+    the prove: 1 - (union of device activity) / (the prove's span)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("prove"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = next(e for e in events
+                  if e.name == "prove" and e.device_type == torch.autograd.DeviceType.CPU).time_range
+    # device activity: kernels, copies and sets (the "prove" range also shows
+    # on the device timeline as an annotation, and is no activity)
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "prove"]
+    if not device:
+        print(f"[{phase}] profiled prove at {label}: the profiler recorded no device activity "
+              "(idle share not measured)")
+        return
+    spans = sorted((max(e.time_range.start, window.start), min(e.time_range.end, window.end))
+                   for e in device)
+    busy, end = 0.0, window.start
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = window.end - window.start
+    by_name = {}
+    for e in device:
+        total, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (total + e.time_range.end - e.time_range.start, count + 1)
+    print(f"[{phase}] profiled prove at {label}: span {span / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms, device idle share {1 - busy / span:.4f}")
+    for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"[{phase}]   {total / 1e3:10.3f} ms  {count:5d} x  {name[:110]}")
 
 
 def point_pools(rng):
@@ -211,12 +256,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"[1] build {time.perf_counter() - t0:.3f} s (nvcc sm_90a, {_build.build_dir()})")
+    ptxas = {}
     for name in _build.SOURCES:
-        text = (_build.build_dir() / f"{name}.ptxas.txt").read_text().splitlines()
-        for i, line in enumerate(text):
-            if "Compiling entry function" in line and i + 2 < len(text):
-                fn = line.split("'")[1]
-                print(f"    ptxas {fn[:90]}: {text[i + 2].split(':')[-1].strip()}; {text[i + 1].strip()}")
+        ptxas.update(_build.ptxas_report(_build.build_dir() / f"{name}.ptxas.txt"))
+    for fn, row in ptxas.items():
+        print(f"    ptxas {fn[:90]}: {row['registers']} registers, spill stores "
+              f"{row['spill_stores']} B, spill loads {row['spill_loads']} B")
+    scan_res = ck.tile_scan_resources(ptxas)
     card = nvidia_smi("name,power.limit")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     print(card)
@@ -402,6 +448,10 @@ def main() -> int:
               CSRC, f" add, T={Tg}")
         del P, Qa, Pg, Qg, got, vg, fg
         torch.cuda.empty_cache()
+        res = scan_res[tag]
+        results[f"tile_scan_{tag}"].update(
+            registers={mode: row["registers"] for mode, row in res.items()},
+            spill_bytes={mode: row["spill_stores"] + row["spill_loads"] for mode, row in res.items()})
 
     # ---- 4. main path at a 2^20 domain --------------------------------------
     from circom_compat_tpu_torch.models import groth16_device as gd
@@ -445,6 +495,7 @@ def main() -> int:
     print(f"[4] steady-state prove at 2^{LOG_N}: median {med:.4f} s of {totals} "
           f"({card}); peak device memory {torch.cuda.max_memory_allocated()} B")
     print("[4] stages (median s): " + json.dumps({k2: round(v, 4) for k2, v in stage_med.items()}))
+    profile_prove(lambda: gd.prove_prepared(dpk, r_, s_, asg, wbits), 4, f"2^{LOG_N}")
 
     # h of the port, and the same witness map through the plain versions
     asg_dev = torch.from_numpy(gd.encode_assignment(asg)).to(dev)
@@ -545,6 +596,7 @@ def main() -> int:
     print(f"[6] steady-state prove at 2^{LOG_SMALL}: median {statistics.median(totals6):.4f} s of "
           f"{totals6} ({card}); stages (median s): "
           + json.dumps({k2: round(statistics.median(x[k2] for x in stages6), 5) for k2 in stages6[0]}))
+    profile_prove(lambda: gd.prove_prepared(dpk6, r6, s6, asg6), 6, f"2^{LOG_SMALL}")
     plan6 = ntt.get_plan(1 << LOG_SMALL)
     a6, b6 = lazy_fr(plan6.n), lazy_fr(plan6.n)
     flat_h, flat_ms = timed(lambda: ntt.witness_map_flat(plan6, a6, b6), 20)

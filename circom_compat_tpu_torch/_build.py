@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -69,6 +70,33 @@ def build_dir() -> Path:
     return CACHE / source_hash()
 
 
+def nvcc_command(source: Path, output: Path, extra=()) -> list:
+    """The nvcc command that builds one source into a shared library."""
+    return [_nvcc(), *NVCC_FLAGS, *extra, "-I", str(source.parent), "-o", str(output), str(source)]
+
+
+def ptxas_report(log: Path) -> Dict[str, dict]:
+    """{mangled kernel name: {registers, spill_stores, spill_loads}} from a
+    `-Xptxas -v` log (bytes for the spills)."""
+    report: Dict[str, dict] = {}
+    current = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = report.setdefault(m.group(1), {"registers": None, "spill_stores": 0,
+                                                     "spill_loads": 0})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return report
+
+
 def build_all() -> Path:
     """Compile every source that has no library yet, all in parallel."""
     global build_seconds
@@ -78,12 +106,11 @@ def build_all() -> Path:
         return out
     out.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    nvcc = _nvcc()
     procs = []
     for name in missing:
         tmp = out / f"{name}.{os.getpid()}.tmp.so"
         log = open(out / f"{name}.ptxas.txt", "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = nvcc_command(CSRC / f"{name}.cu", tmp)
         procs.append((name, tmp, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
     failed = []
     for name, tmp, log, proc in procs:

@@ -27,6 +27,7 @@ import torch
 
 from ..circom.zkey import ConstraintMatrices, ProvingKey
 from ..constants import R_SCALAR
+from ..device import resolve_device  # noqa: F401  (re-exported: the port's device rule)
 from ..ops import curve as cv
 from ..ops import field as fl
 from ..ops import field_kernels as fk
@@ -35,17 +36,6 @@ from ..ops import msm as msm_ops
 from ..ops import ntt
 from ..refmath import curve as rc
 from .groth16 import Proof
-
-
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller names another device."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to prove on the CPU "
-                "with the kernels' plain versions")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:

@@ -33,13 +33,14 @@ import torch
 from ..circom import qap
 from ..circom.zkey import G1Section, G2Section, ProvingKey, VerifyingKey
 from ..constants import B_G2, MONT_R_INV_Q, Q, R_SCALAR, fr_root_of_unity
+from ..device import resolve_device
 from ..ops import curve as cv
 from ..ops import field as fl
 from ..ops import field_kernels as fk
 from ..ops import fixed_base as fb
 from ..ops import limbs as limb_codec
 from ..refmath import curve as rc
-from .groth16_device import _Stages, resolve_device
+from .groth16_device import _Stages
 
 Rows = List[List[Tuple[int, int]]]
 ONCURVE_BLOCK = 1 << 22

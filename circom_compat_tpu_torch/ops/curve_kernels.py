@@ -113,3 +113,11 @@ def point_tile_scan(vt: torch.Tensor, ft: torch.Tensor, mixed: bool = False):
     _build.check(rc, "point_tile_scan")
     LAUNCHES["tile_scan_g2" if g2 else "tile_scan_g1"] += 1
     return out, carry
+
+
+def tile_scan_resources(report: dict) -> dict:
+    """{"g1"|"g2": {"madd"|"add": ptxas row}} of the four point_tile_scan
+    entry kernels (csrc/curve_kernels.cu, ccf_tile_scan_<group>_<mode>) in a
+    ptxas report (_build.ptxas_report); raises if one is missing."""
+    return {group: {mode: report[f"ccf_tile_scan_{group}_{mode}"] for mode in ("madd", "add")}
+            for group in ("g1", "g2")}

@@ -32,6 +32,7 @@ import torch
 
 from .. import _build
 from ..constants import Q
+from ..device import resolve_device
 from . import field as fl
 from . import limbs as limb_codec
 
@@ -101,18 +102,19 @@ def fq_op_chain(op: str, a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tens
 
 def operands(n: int, seed: int = 3, device=None):
     """Two (n, 8) tensors of seeded canonical Fq values (Montgomery form is
-    irrelevant to the op count)."""
+    irrelevant to the op count), on the card unless device names another."""
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     vals = [int.from_bytes(rng.bytes(32), "little") % Q for _ in range(2 * n)]
     w = torch.from_numpy(limb_codec.ints_to_words(vals))
-    return w[:n].contiguous().to(device), w[n:].contiguous().to(device)
+    return w[:n].contiguous().to(dev), w[n:].contiguous().to(dev)
 
 
 def run(n: int = 1 << 16, k: int = 64, ops: Sequence[str] = OPS, reps: int = 5,
         device=None) -> Dict[str, float]:
     """{op: G ops/s} on the card: each op's chain timed with CUDA events
     over `reps` launches after one warm-up launch."""
-    dev = torch.device(device or "cuda")
+    dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("the microbenchmark times the card's kernel: pass a CUDA device")
     a, b = operands(n, device=dev)

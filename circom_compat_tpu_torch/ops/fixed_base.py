@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..constants import Q, R_SCALAR
+from ..device import resolve_device
 from ..refmath import curve as rc
 from . import curve as cv
 from . import curve_kernels as ck
@@ -199,6 +200,8 @@ def fixed_base_points_from_words(scalars: torch.Tensor, g2: bool = False,
 
 def fixed_base_points(scalars: List[int], g2: bool = False, device=None,
                       chunk: int = CHUNK) -> torch.Tensor:
-    """[G * s for s in scalars] (Python ints, reduced mod r) as affine words."""
-    words = torch.from_numpy(fl.encode_plain([s % R_SCALAR for s in scalars])).to(device)
+    """[G * s for s in scalars] (Python ints, reduced mod r) as affine words,
+    on the card unless device names another."""
+    words = torch.from_numpy(fl.encode_plain([s % R_SCALAR for s in scalars])).to(
+        resolve_device(device))
     return fixed_base_points_from_words(words, g2, chunk)

@@ -43,6 +43,23 @@ def _same(a, b):
     assert torch.equal(a.cpu(), b.cpu())
 
 
+def _edge_words(n, p, dev, stride=1, canonical=False):
+    """n words cycling through the field core's edge values 0, 1, p-1, 2p-1
+    (p-2 for 2p-1 when canonical; element i takes value (i // stride) % 4)."""
+    edges = [0, 1, p - 1, p - 2 if canonical else 2 * p - 1]
+    return torch.from_numpy(lc.ints_to_words([edges[(i // stride) % 4] for i in range(n)])).to(dev)
+
+
+def _edge_points(g2, n, dev):
+    """n points whose every coordinate word row is an edge value, all
+    combinations of them over 4^(coords) rows."""
+    from circom_compat_tpu_torch.constants import Q
+
+    coords = 6 if g2 else 3
+    cols = [_edge_words(n, Q, dev, 4**j) for j in range(coords)]
+    return torch.stack(cols, 1).reshape((n, 3) + ((2,) if g2 else ()) + (8,)).contiguous()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["mul", "mul_canon", "add", "sub"])
 def test_fr_binary(cuda, op):
@@ -111,16 +128,41 @@ def test_point_add(cuda, g2, mixed):
     assert dec(got) == [grp.add(a, b) for a, b in zip(pts, q_pts)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("g2", [False, True])
-@pytest.mark.parametrize("mixed", [False, True])
-def test_point_tile_scan(cuda, g2, mixed):
-    _, pts = _points(g2, 40 * 16)
+def _scan_rows(g2, mixed, T, K):
+    """T * K points (an identity row at 1, a doubling at 4 and an inverse at
+    11), general representatives (Z != 1) unless mixed."""
+    grp, pts = _points(g2, T * K)
+    pts[4] = pts[3]
+    pts[11] = grp.neg(pts[10])
     P = _encode(g2, pts)
     if not mixed:
-        P = ck.point_add_plain(P, P.roll(1, 0))
-    vt = P.reshape((40, 16) + P.shape[1:]).to(cuda)
-    ft = torch.rand(40, 16, device=cuda) < 0.2
+        P = ck.point_add_plain(P, _encode(g2, [None] * len(pts)))
+    return P.reshape((T, K) + P.shape[1:])
+
+
+SCAN_CASES = {  # id: (T, K, flags)
+    "T1": (1, 16, "segments"), "T127": (127, 16, "segments"), "T129": (129, 16, "segments"),
+    "T1000": (1000, 16, "segments"), "all_flags": (40, 16, "all"), "no_flags": (40, 16, "none"),
+    "K5": (33, 5, "segments"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+@pytest.mark.parametrize("mixed", [False, True], ids=["add", "madd"])
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_point_tile_scan(cuda, g2, mixed, case):
+    """Ragged T (blocks of 64 tiles), every flag, no flag, identity rows, and
+    a doubling and an inverse inside a segment; K != 16 takes the same
+    kernel."""
+    T, K, kind = SCAN_CASES[case]
+    vt = _scan_rows(g2, mixed, T, K).to(cuda)
+    if kind == "segments":  # segments start at 3 and 10 and by chance; 4 and 11 inside
+        ft = torch.rand(T, K, device=cuda) < 0.2
+        ft.view(-1)[[3, 10]] = True
+        ft.view(-1)[[4, 11]] = False
+    else:
+        ft = torch.full((T, K), kind == "all", device=cuda)
     out, carry = ck.point_tile_scan(vt, ft, mixed)
     want_out, want_carry = ck.point_tile_scan_plain(vt, ft, mixed)
     _same(out, want_out)
@@ -178,6 +220,58 @@ def test_fq_op_chain(cuda, op):
 
     a, b = fbn.operands(1000, device=cuda)
     _same(fbn.fq_op_chain(op, a, b, 9), fbn.fq_op_chain_plain(op, a, b, 9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fr_binary", "fr_binary_fq", "fr_tile_scan", "ntt_rows",
+                                    "fr_butterfly_stage", "fq_op_chain", "point_add",
+                                    "point_tile_scan"])
+def test_field_core_edge_values(cuda, kernel):
+    """Every kernel on operands made only of the edge values 0, 1, p-1 and
+    2p-1 of the lazy range, in all pairings, against its plain version."""
+    from circom_compat_tpu_torch.constants import Q
+    from circom_compat_tpu_torch.ops import field as fl
+    from circom_compat_tpu_torch.ops import field_bench as fbn
+    from circom_compat_tpu_torch.ops import ntt
+
+    if kernel in ("fr_binary", "fr_binary_fq"):
+        F, p = (fl.FQ, Q) if kernel == "fr_binary_fq" else (fl.FR, R_SCALAR)
+        a, b = _edge_words(64, p, cuda), _edge_words(64, p, cuda, 4)
+        for op in ("mul", "mul_canon", "add", "sub"):
+            _same(fk.fr_binary(op, a, b, F), fk.fr_binary_plain(op, a, b, F))
+    elif kernel == "fr_tile_scan":
+        vt = _edge_words(64 * 16, R_SCALAR, cuda, 3).reshape(64, 16, 8)
+        ft = torch.rand(64, 16, device=cuda) < 0.2
+        for got, want in zip(fk.fr_tile_scan(vt, ft), fk.fr_tile_scan_plain(vt, ft)):
+            _same(got, want)
+    elif kernel == "ntt_rows":
+        tb = ntt.get_plan(64 * 64).tables(cuda, "four_step")
+        x, m = _edge_words(4 * 64, R_SCALAR, cuda).reshape(4, 64, 8), _edge_words(4 * 64, R_SCALAR, cuda, 4)
+        kw = dict(tw_dif=tb["tw1_inv"], pre=m.reshape(x.shape), mid=m.reshape(x.shape),
+                  tw_dit=tb["tw1_fwd"], post=m.reshape(x.shape), post_op="sub")
+        _same(fk.ntt_rows(x, **kw), fk.ntt_rows_plain(x, **kw))
+    elif kernel == "fr_butterfly_stage":
+        tw = ntt.get_plan(1024).tables(cuda, "flat")["tw_fwd"]
+        x = _edge_words(1024, R_SCALAR, cuda)
+        for dif in (False, True):
+            _same(fk.fr_butterfly_stage(x, tw, 4, dif), fk.fr_butterfly_stage_plain(x, tw, 4, dif))
+    elif kernel == "fq_op_chain":
+        for op in fbn.OPS:  # "add" is the canonical add: canonical operands
+            a, b = (_edge_words(64, Q, cuda, s, canonical=op == "add") for s in (1, 4))
+            _same(fbn.fq_op_chain(op, a, b, 5), fbn.fq_op_chain_plain(op, a, b, 5))
+    else:
+        for g2 in (False, True):
+            P = _edge_points(g2, 4096 if g2 else 64, cuda)
+            Qp = P.roll(7, 0).contiguous()
+            for mixed in (False, True):
+                if kernel == "point_add":
+                    _same(ck.point_add(P, Qp, mixed), ck.point_add_plain(P, Qp, mixed))
+                else:
+                    vt = P.reshape((-1, 16) + P.shape[1:])
+                    ft = torch.rand(vt.shape[:2], device=cuda) < 0.2
+                    for got, want in zip(ck.point_tile_scan(vt, ft, mixed),
+                                         ck.point_tile_scan_plain(vt, ft, mixed)):
+                        _same(got, want)
 
 
 @pytest.mark.cuda

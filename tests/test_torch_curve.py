@@ -9,7 +9,9 @@ Rows cover general points, the identity on either side, doubling (P + P)
 and inverses (P + (-P)); the scans put a doubling and an inverse inside a
 segment. Inputs are made from a numpy seed and fed to both packages.
 Tolerance: exact equality of the affine group elements (all
-arithmetic is integer; projective representatives may differ by a scale).
+arithmetic is integer; projective representatives may differ by a scale),
+and against curve_jax's XLA scan of the same flags, of every projective
+coordinate mod q.
 """
 
 from functools import partial
@@ -23,7 +25,9 @@ import torch
 from circom_compat_tpu.ops import curve_jax as cj
 from circom_compat_tpu.ops import curve_pallas as cp
 from circom_compat_tpu_torch.ops import curve as cv
+from circom_compat_tpu_torch.constants import Q
 from circom_compat_tpu_torch.ops import curve_kernels as ck
+from circom_compat_tpu_torch.ops import limbs as tl
 from circom_compat_tpu_torch.refmath import curve as rc
 
 # The plain versions run many small tensor ops: one thread per test process
@@ -130,7 +134,35 @@ def test_affine_to_proj_and_identity():
         assert _decode(g2, ck.point_add(P, P)) == [grp.add(p, p) for p in pts]
 
 
-def _tile_case(g2, mixed, T=3, K=16):
+def _xla_tile_scan(g2, mixed, jv, flags):
+    """The tile scan as curve_jax's XLA proj_madd / proj_add applied step by
+    step with the same flags: (out, carry) as JAX (X, Y, Z) tuples."""
+    F = cj.FQ2_ADAPTER if g2 else cj.FQ_ADAPTER
+    step = jax.jit(partial(cj.proj_madd if mixed else cj.proj_add, F))
+    T, K = flags.shape
+    acc, outs = cj.proj_infinity(F, (T,)), []
+    for k in range(K):
+        x = tuple(c[:, k] for c in jv)
+        acc = tuple(F.select(jnp.asarray(flags[:, k]), a, b) for a, b in zip(x, step(acc, x)))
+        outs.append(acc)
+    return tuple(jnp.stack(c, axis=1) for c in zip(*outs)), acc
+
+
+def _coords_mod_q(P):
+    """Every coordinate word row of a port point tensor as an int mod q."""
+    return [v % Q for v in tl.words_to_ints(np.ascontiguousarray(P.numpy()).reshape(-1, 8))]
+
+
+def _jax_coords_mod_q(g2, pt):
+    """The same for JAX (X, Y, Z) 16-bit limbs (canonical in curve_jax)."""
+    limbs = np.stack([np.asarray(c) for c in pt], axis=-3 if g2 else -2).astype("<u2")
+    return _coords_mod_q(torch.from_numpy(limbs.view("<i4").copy()))
+
+
+def _tile_case(g2, mixed, T=3, K=16, reference="pallas"):
+    """point_tile_scan on CPU tensors (its plain version) against the JAX
+    package's Pallas tile scan (interpret mode) or its XLA formulas step by
+    step, and against refmath."""
     grp, gen = _group(g2)
     pts = [grp.mul(gen, int(k)) for k in RNG.integers(1, 1 << 62, size=T * K)]
     pts[5] = None
@@ -143,7 +175,14 @@ def _tile_case(g2, mixed, T=3, K=16):
     vt = P.reshape((T, K) + P.shape[1:])
     out, carry = ck.point_tile_scan(vt, torch.from_numpy(flags), mixed=mixed)
     jv = tuple(c.reshape((T, K) + c.shape[1:]) for c in _to_jax(P))
-    j_out, j_carry = cp.make_tile_scan(g2, block=128, mixed=mixed)(jv, jnp.asarray(flags))
+    if reference == "pallas":
+        j_out, j_carry = cp.make_tile_scan(g2, block=128, mixed=mixed)(jv, jnp.asarray(flags))
+    else:
+        j_out, j_carry = _xla_tile_scan(g2, mixed, jv, flags)
+        # the same projective representatives: curve_jax reduces fully, the
+        # port keeps lazy [0, 2q) words, so coordinates agree mod q
+        assert _coords_mod_q(out) == _jax_coords_mod_q(g2, j_out)
+        assert _coords_mod_q(carry) == _jax_coords_mod_q(g2, j_carry)
     want_out, acc = [], None
     for p, f in zip(pts, flags.reshape(-1)):
         acc = p if f else grp.add(acc, p)
@@ -158,7 +197,37 @@ def test_g1_tile_scan_vs_pallas(mixed):
     _tile_case(False, mixed)
 
 
+@pytest.mark.parametrize("mixed", [True, False], ids=["madd", "add"])
+def test_g2_tile_scan_vs_curve_jax(mixed):
+    """K8 G2 plain version, the spec of the G2 kernels, vs curve_jax's XLA
+    proj_madd / proj_add step by step: every projective coordinate equal mod
+    q, and the group elements equal to refmath's. Segments hold a doubling and an inverse; row 5 is the
+    identity."""
+    _tile_case(True, mixed, T=2, reference="xla")
+
+
 @pytest.mark.slow
 def test_g2_tile_scan_vs_pallas():
     """G2 Pallas tile scans take minutes to build in interpret mode."""
     _tile_case(True, True, T=2, K=8)
+
+
+def test_tile_scan_resources_from_ptxas_log(tmp_path):
+    """The K8 entry kernels' registers and spills, as chip_smoke.py reads
+    them from nvcc's `-Xptxas -v` log; a missing kernel raises."""
+    from circom_compat_tpu_torch import _build
+
+    lines = []
+    for i, name in enumerate(f"ccf_tile_scan_{g}_{m}" for g in ("g1", "g2") for m in ("madd", "add")):
+        lines += [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+                  f"ptxas info    : Function properties for {name}",
+                  f"    0 bytes stack frame, {8 * i} bytes spill stores, {4 * i} bytes spill loads",
+                  f"ptxas info    : Used {120 + i} registers, used 1 barriers, 5120 bytes smem"]
+    log = tmp_path / "curve_kernels.ptxas.txt"
+    log.write_text("\n".join(lines) + "\n")
+    res = ck.tile_scan_resources(_build.ptxas_report(log))
+    assert res["g1"]["madd"] == {"registers": 120, "spill_stores": 0, "spill_loads": 0}
+    assert res["g2"]["add"] == {"registers": 123, "spill_stores": 24, "spill_loads": 12}
+    log.write_text("\n".join(lines[:4]) + "\n")
+    with pytest.raises(KeyError):
+        ck.tile_scan_resources(_build.ptxas_report(log))

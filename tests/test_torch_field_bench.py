@@ -47,7 +47,7 @@ def run_op():
 
 @pytest.mark.parametrize("op", fbn.OPS)
 def test_plain_chain_matches_run_op(run_op, op):
-    a, b = fbn.operands(512, seed=9)
+    a, b = fbn.operands(512, seed=9, device="cpu")
     want = run_op(op, *(jnp.asarray(np.ascontiguousarray(x.numpy()).view("<u2").astype(np.uint32).T)
                         for x in (a, b)))
     got = fbn.fq_op_chain(op, a, b, 64)
@@ -58,7 +58,7 @@ def test_plain_chain_matches_run_op(run_op, op):
 
 
 def test_op_chain_checks_its_operands():
-    a, b = fbn.operands(4)
+    a, b = fbn.operands(4, device="cpu")
     with pytest.raises(ValueError, match="unknown op"):
         fbn.fq_op_chain("normalize", a, b, 3)
     with pytest.raises(ValueError):
@@ -66,3 +66,13 @@ def test_op_chain_checks_its_operands():
     assert torch.equal(fbn.fq_op_chain("mul9", a, b, 0), a)
     with pytest.raises(ValueError, match="CUDA"):
         fbn.run(4, 2, device="cpu")
+
+
+def test_operands_default_to_the_card(monkeypatch):
+    """Without a CUDA device the default raises and names device='cpu'."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fbn.operands(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fbn.run(4, 2)
+    assert fbn.operands(4, device="cpu")[0].device == torch.device("cpu")

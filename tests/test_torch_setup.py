@@ -149,6 +149,21 @@ def test_fixed_base_points_vs_host_ladder():
     assert torch.equal(got, torch.from_numpy(want))
 
 
+def test_fixed_base_points_defaults_to_the_card(monkeypatch):
+    """Without a CUDA device the default raises and names device='cpu'; the
+    rule lives in circom_compat_tpu_torch.device and groth16_device
+    re-exports it."""
+    from circom_compat_tpu_torch import device as tdev
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fb.fixed_base_points([1, 2])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdev.resolve_device()
+    assert gd.resolve_device is tdev.resolve_device
+    assert fb.fixed_base_points([1], device="cpu").device == torch.device("cpu")
+
+
 def test_batch_inv_fq_maps_zero_rows_to_zero():
     rng = random.Random(5)
     vals = [rng.randrange(1, Q) for _ in range(37)]
