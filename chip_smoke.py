@@ -5,10 +5,12 @@
 
 Phases (each passes or raises; nothing is caught):
   1. card: builds the CUDA kernels from csrc/ (nvcc, sm_90a), prints each
-     kernel's registers and spill bytes (ptxas) and the card's name and
-     power limit;
+     kernel's registers and spill bytes (ptxas; the K6/K7 and K8 entry
+     kernels by their C names) and the card's name and power limit;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the 2^20-domain prove gives it, word for word (max_abs_err 0);
+     K6/K7 at 2^20 pairs and at the path's largest general add (Phase C
+     over the level-0 carries: 5,242,880 G1, 1,310,720 G2);
   3. each kernel's time (CUDA events, warmed up, averaged), its bound and
      the plain version's time;
   4. the main path: a 2^20-domain squaring-chain proof through
@@ -16,7 +18,8 @@ Phases (each passes or raises; nothing is caught):
      synthetic key whose every point has a known discrete log, so the host
      knows A, B and C exactly; h is also held against the plain witness
      map run on the card; after the timed proves, one prove under
-     torch.profiler: the top device kernels and the device's idle share;
+     torch.profiler: the top device kernels, the device's idle share and
+     each of the port's kernel families' summed device time and launches;
   5. golden: chain254 proved from tests/golden/chain254.zkey must equal
      tests/golden/chain254_proof.json and verify;
   6. the small-circuit path at a 2^13 domain: setup on the card
@@ -35,8 +38,9 @@ Phases 2-3 also hold the flat chain's stage kernel (2^13 and 2^20), the Fq
 binary modes (2^20) and the K9 op chain (2^16 elements, K = 64) against
 their plain versions. Each kernel's launches are counted on the path that
 runs it (phase 4, 6 or 7, or 8 for K9), the counts set to 0 just before.
-The kernels line (JSON; the K8 entries also carry ptxas's registers and
-spill bytes per mode) and then the result line close the output.
+The kernels line (JSON; the K6/K7 and K8 entries also carry ptxas's
+registers and spill bytes per mode) and then the result line close the
+output.
 Exits non-zero, printing no result, when there is no CUDA device.
 """
 
@@ -146,6 +150,30 @@ def profile_prove(fn, phase, label, top=12):
           f"{busy / 1e3:.3f} ms, device idle share {1 - busy / span:.4f}")
     for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"[{phase}]   {total / 1e3:10.3f} ms  {count:5d} x  {name[:110]}")
+    families = {}
+    for name, (total, count) in by_name.items():
+        fam = kernel_family(name)
+        if fam:
+            t, c = families.get(fam, (0.0, 0))
+            families[fam] = (t + total, c + count)
+    print(f"[{phase}] the port's kernel families at {label} (device ms, launches): " + json.dumps(
+        {fam: [round(t / 1e3, 4), c] for fam, (t, c) in sorted(families.items(), key=lambda kv: -kv[1][0])}))
+
+
+def kernel_family(name):
+    """The family of one of the port's kernels in a profiler name, or None
+    for other kernels: an entry kernel with a C name (ccf_point_add_g2_madd)
+    gives its group's family (ccf_point_add_g2), a template kernel of
+    csrc/field_kernels.cu (in an anonymous namespace) its function name."""
+    import re
+
+    m = re.search(r"\b(ccf_\w+?)(?:_madd|_add)?\b(?:\(|$)", name)
+    if m:
+        return m.group(1)
+    if "anonymous namespace" in name:
+        m = re.search(r"(\w+)(?:<[^()]*>)?\(", name)
+        return m.group(1) if m else None
+    return None
 
 
 def point_pools(rng):
@@ -263,6 +291,10 @@ def main() -> int:
         print(f"    ptxas {fn[:90]}: {row['registers']} registers, spill stores "
               f"{row['spill_stores']} B, spill loads {row['spill_loads']} B")
     scan_res = ck.tile_scan_resources(ptxas)
+    add_res = ck.point_add_resources(ptxas)
+    print("    K6/K7 entry kernels (registers, spill stores + loads B): " + json.dumps(
+        {f"{g}_{m}": [row["registers"], row["spill_stores"] + row["spill_loads"]]
+         for g, modes in add_res.items() for m, row in modes.items()}))
     card = nvidia_smi("name,power.limit")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     print(card)
@@ -419,6 +451,21 @@ def main() -> int:
         check(f"point_add_{tag}", lambda: ck.point_add(P, Qa, mixed=True),
               lambda: ck.point_add_plain(P, Qa, mixed=True),
               10, 3 * pb * n, (fq_muls - 3 if g2 else 11) * MAD * n, f"{CP}:233", CSRC, " madd")
+        # ... and at the path's largest shape: Phase C of the scan over the
+        # level-0 tiles' carries (W * n / 16 per MSM; 4 MSMs in G1, 1 in
+        # G2), word for word against the plain version in 2^20-row chunks;
+        # every row is drawn afresh, so no two chunks hold the same inputs
+        big = W * n // (16 if g2 else 4)
+
+        def chunked_plain(a, b):
+            return torch.cat([ck.point_add_plain(a[i : i + n], b[i : i + n]) for i in range(0, big, n)])
+
+        Pb = chunked_plain(affine_rows(g2, big, pool_xy, neg_xy)[0],
+                           affine_rows(g2, big, pool_xy, neg_xy)[0])  # Z != 1
+        Qb = Pb.roll(3, 0).contiguous()
+        check(f"point_add_{tag}", lambda: ck.point_add(Pb, Qb), lambda: chunked_plain(Pb, Qb),
+              5, 3 * pb * big, fq_muls * MAD * big, f"{CP}:233", CSRC, f" add, n={big}")
+        del Pb, Qb
         rows = list(range(0, 400))
         dec = cv.decode_g2_proj if g2 else cv.decode_g1_proj
         p_aff, q_aff = dec(P[rows]), dec(Qa[rows])
@@ -448,10 +495,10 @@ def main() -> int:
               CSRC, f" add, T={Tg}")
         del P, Qa, Pg, Qg, got, vg, fg
         torch.cuda.empty_cache()
-        res = scan_res[tag]
-        results[f"tile_scan_{tag}"].update(
-            registers={mode: row["registers"] for mode, row in res.items()},
-            spill_bytes={mode: row["spill_stores"] + row["spill_loads"] for mode, row in res.items()})
+        for kind, res in (("tile_scan", scan_res[tag]), ("point_add", add_res[tag])):
+            results[f"{kind}_{tag}"].update(
+                registers={mode: row["registers"] for mode, row in res.items()},
+                spill_bytes={mode: row["spill_stores"] + row["spill_loads"] for mode, row in res.items()})
 
     # ---- 4. main path at a 2^20 domain --------------------------------------
     from circom_compat_tpu_torch.models import groth16_device as gd

@@ -36,33 +36,6 @@ struct G1 {
   static __device__ __forceinline__ E one() { return load_const(kFqOne); }
 };
 
-struct G2 {
-  using E = Fe2;
-  static constexpr int kWords = 16;
-  static constexpr int kLanes = 1;
-  static __device__ __forceinline__ E add(const E& a, const E& b) { return add2(a, b); }
-  static __device__ __forceinline__ E sub(const E& a, const E& b) { return sub2(a, b); }
-  static __device__ __forceinline__ E mul(const E& a, const E& b) { return mul2(a, b); }
-  // constant Karatsuba against 3b' = (c0, c1) with the reduced c0 + c1
-  static __device__ __forceinline__ E mul_b3(const E& a) {
-    Fe v0 = mul_lazy<Fq>(load_const(kB3C0), a.c0);
-    Fe v1 = mul_lazy<Fq>(load_const(kB3C1), a.c1);
-    Fe s = mul_lazy<Fq>(load_const(kB3Sum), ccf::add<Fq>(a.c0, a.c1));
-    return {ccf::sub<Fq>(v0, v1), ccf::sub<Fq>(ccf::sub<Fq>(s, v0), v1)};
-  }
-  static __device__ __forceinline__ E load(const uint32_t* p) { return {ccf::load(p), ccf::load(p + 8)}; }
-  static __device__ __forceinline__ E load_again(const uint32_t* p) {
-    return {ccf::load_again(p), ccf::load_again(p + 8)};
-  }
-  static __device__ __forceinline__ void store(uint32_t* p, const E& a) {
-    ccf::store(p, a.c0);
-    ccf::store(p + 8, a.c1);
-  }
-  static __device__ __forceinline__ bool is_zero(const E& a) { return ccf::is_zero(a.c0) && ccf::is_zero(a.c1); }
-  static __device__ __forceinline__ E zero() { return {ccf::zero(), ccf::zero()}; }
-  static __device__ __forceinline__ E one() { return {load_const(kFqOne), ccf::zero()}; }
-};
-
 // G2 with each point split over a lane pair: lane l = threadIdx.x & 1 holds
 // coefficient c_l of every Fq2 coordinate. Adds and subtracts act on the
 // own coefficient. A product exchanges the operands' other coefficients
@@ -190,22 +163,6 @@ __device__ __forceinline__ void combine(Point<G>& p, const uint32_t* q) {
   }
 }
 
-// ---- K6/K7: out[i] = p[i] + q[i] -----------------------------------------
-// Replaces curve_pallas._add_blocked_lm (circom_compat_tpu/ops/curve_pallas.py:217),
-// general and mixed. Bound: operations. A G1 add is 12 Fq muls (3168
-// multiply-adds) against 288 B moved; G2 is 42 muls against 576 B. Design:
-// one thread per point pair, P in registers, Q read where the formula uses it.
-template <class G, bool kMixed>
-__global__ void point_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
-                                 uint32_t* __restrict__ out, long long n) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  constexpr int kStride = 3 * G::kWords;
-  Point<G> a = load_point<G>(p + kStride * i);
-  combine<G, kMixed>(a, q + kStride * i);
-  store_point<G>(out + kStride * i, a);
-}
-
 // ---- K8: within-tile segmented inclusive point scan -----------------------
 // Replaces curve_pallas._tile_scan_blocked (curve_pallas.py:334): for each
 // tile t, acc = flags[t, k] ? v[t, k] : acc + v[t, k]; out[t, k] = acc;
@@ -304,14 +261,101 @@ __device__ __forceinline__ void point_tile_scan(const uint32_t* __restrict__ v, 
   if (active) store_point<G>(carry + kStride * t, acc);
 }
 
-inline unsigned blocks_for(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
+// ---- K6/K7: out[i] = p[i] + q[i] -----------------------------------------
+// Replaces curve_pallas._add_blocked_lm (circom_compat_tpu/ops/curve_pallas.py:233),
+// general and mixed: Phase C of every bucket scan and the setup's
+// fixed-base fold. Bound: operations. A G1 add is 12 Fq muls (3168
+// multiply-adds) against 288 B moved; G2 is 42 muls against 576 B. As in
+// K8, the carry chains' latency holds it back, hidden only by resident
+// warps and independent products. Design:
+//  - Registers: G2 runs on a lane pair (G2Pair); __launch_bounds__ pins G2
+//    at 128 registers with no spill, 16 resident warps per SM
+//    (kAddBlocksG2 blocks of kAddThreads), and G1 at 96 with no spill, 20
+//    warps (kAddBlocksG1): G1 gains from the warps and needs no more
+//    registers; G2 with more registers and 8 warps is slower. 64-thread
+//    blocks spread the 2^13 prove's launches (<= 16,384 G2 points) over
+//    all SMs; the 2^20 prove's (up to 5,242,880) fill the card many times.
+//    Two G1 points a thread, their products interleaved, spilled at 128
+//    registers and was slower at 255 (PERF.md), so one point a thread.
+//  - Memory: G2 (point_add_block) stages a block's P and Q rows through
+//    shared memory with 16-byte cp.async by neighbouring threads, into
+//    16-B-padded rows as in K8; the formulas re-read Q from its shared row
+//    at each use, and the sum goes back through P's row as coalesced
+//    16-byte stores. One stage per block: the bytes are small beside the
+//    products. G1 measured slower staged (the barrier and the round trip,
+//    PERF.md), so each G1 thread reads its P and Q where the formulas use
+//    them (point_add_direct), neighbours' rows sharing cache lines.
+// A madd whose Q is at infinity leaves P's row as it is: the plain
+// version's select. Inactive threads of a ragged last block skip the work
+// but reach every barrier, and both lanes of a pair share one point, so a
+// pair is active or inactive together (its shuffles pair up).
+// The four instantiations are entry kernels with C names
+// (ccf_point_add_{g1,g2}_{add,madd}), which the ptxas report keys by.
+constexpr int kAddThreads = 64;
+constexpr int kAddBlocksG1 = 10;  // resident blocks per SM: 96 registers a thread
+constexpr int kAddBlocksG2 = 8;   // 128 registers a thread
 
-template <class G, bool kMixed>
-void launch_add(const void* p, const void* q, void* out, long long n, cudaStream_t s) {
-  const int threads = 128;
-  point_add_kernel<G, kMixed><<<blocks_for(n, threads), threads, 0, s>>>(
-      (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+template <class G>
+__host__ __device__ constexpr int add_points_per_block() {
+  return kAddThreads / G::kLanes;
 }
+
+// G1: one point per thread, P and Q read where the formulas use them.
+template <class G, bool kMixed>
+__device__ __forceinline__ void point_add_direct(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
+                                                 uint32_t* __restrict__ out, long long n) {
+  constexpr int kStride = 3 * G::kWords;
+  const long long i = (long long)blockIdx.x * add_points_per_block<G>() + threadIdx.x / G::kLanes;
+  if (i < n) {  // both lanes of a pair share i
+    Point<G> a = load_point<G>(p + kStride * i);
+    combine<G, kMixed>(a, q + kStride * i);
+    store_point<G>(out + kStride * i, a);
+  }
+}
+
+// G2: P and Q staged through shared rows, out drained from P's rows.
+template <class G, bool kMixed>
+__device__ __forceinline__ void point_add_block(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
+                                                uint32_t* __restrict__ out, long long n) {
+  constexpr int W = G::kWords;
+  constexpr int kStride = 3 * W;        // words per point
+  constexpr int kRow = kStride + 4;     // shared-memory row: one 16-byte pad
+  constexpr int kChunks = kStride / 4;  // 16-byte chunks per point
+  constexpr int kPts = add_points_per_block<G>();
+  __shared__ __align__(16) uint32_t sp[kPts * kRow];
+  __shared__ __align__(16) uint32_t sq[kPts * kRow];
+
+  const long long first = (long long)blockIdx.x * kPts;
+  const int np = (int)min((long long)kPts, n - first);  // points of this block
+  // the block's P and Q are contiguous runs: chunk c = (point i, part)
+  for (int c = threadIdx.x; c < np * kChunks; c += kAddThreads) {
+    const int i = c / kChunks, part = c % kChunks;
+    const long long g = (first + i) * kStride + 4 * part;
+    cp_async16(&sp[i * kRow + 4 * part], p + g);
+    cp_async16(&sq[i * kRow + 4 * part], q + g);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int own = threadIdx.x / G::kLanes;  // this thread's point in the block
+  if (own < np) {
+    uint32_t* row = &sp[own * kRow];
+    Point<G> a = load_point<G>(row);
+    combine<G, kMixed>(a, &sq[own * kRow]);
+    store_point<G>(row, a);  // each lane writes its own words only
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < np * kChunks; c += kAddThreads) {
+    const int i = c / kChunks, part = c % kChunks;
+    *reinterpret_cast<uint4*>(out + (first + i) * kStride + 4 * part) =
+        *reinterpret_cast<const uint4*>(&sp[i * kRow + 4 * part]);
+  }
+}
+
+inline unsigned blocks_for(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
 
 }  // namespace
 
@@ -329,14 +373,25 @@ CCF_TILE_SCAN_KERNEL(ccf_tile_scan_g2_madd, G2Pair, true)
 CCF_TILE_SCAN_KERNEL(ccf_tile_scan_g2_add, G2Pair, false)
 #undef CCF_TILE_SCAN_KERNEL
 
+#define CCF_POINT_ADD_KERNEL(name, G, kMixed, kBlocks, body)                                            \
+  __global__ void __launch_bounds__(kAddThreads, kBlocks)                                               \
+      name(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q, uint32_t* __restrict__ out, \
+           long long n) {                                                                               \
+    body<G, kMixed>(p, q, out, n);                                                                      \
+  }
+CCF_POINT_ADD_KERNEL(ccf_point_add_g1_add, G1, false, kAddBlocksG1, point_add_direct)
+CCF_POINT_ADD_KERNEL(ccf_point_add_g1_madd, G1, true, kAddBlocksG1, point_add_direct)
+CCF_POINT_ADD_KERNEL(ccf_point_add_g2_add, G2Pair, false, kAddBlocksG2, point_add_block)
+CCF_POINT_ADD_KERNEL(ccf_point_add_g2_madd, G2Pair, true, kAddBlocksG2, point_add_block)
+#undef CCF_POINT_ADD_KERNEL
+
 int ccf_point_add(int g2, int mixed, const void* p, const void* q, void* out, long long n, void* stream) {
   if (n > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (g2) {
-      mixed ? launch_add<G2, true>(p, q, out, n, s) : launch_add<G2, false>(p, q, out, n, s);
-    } else {
-      mixed ? launch_add<G1, true>(p, q, out, n, s) : launch_add<G1, false>(p, q, out, n, s);
-    }
+    const auto kernel = g2 ? (mixed ? ccf_point_add_g2_madd : ccf_point_add_g2_add)
+                           : (mixed ? ccf_point_add_g1_madd : ccf_point_add_g1_add);
+    const int per_block = g2 ? add_points_per_block<G2Pair>() : add_points_per_block<G1>();
+    kernel<<<blocks_for(n, per_block), kAddThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }

@@ -286,27 +286,4 @@ __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
   return cond_sub<F, false>(mul_lazy<F>(a, b));
 }
 
-// ---- Fq2 = Fq[u]/(u^2 + 1), lazy like its base field ----------------------
-
-struct Fe2 {
-  Fe c0, c1;
-};
-
-__device__ __forceinline__ Fe2 add2(const Fe2& a, const Fe2& b) {
-  return {add<Fq>(a.c0, b.c0), add<Fq>(a.c1, b.c1)};
-}
-
-__device__ __forceinline__ Fe2 sub2(const Fe2& a, const Fe2& b) {
-  return {sub<Fq>(a.c0, b.c0), sub<Fq>(a.c1, b.c1)};
-}
-
-// Karatsuba: v0 = a0 b0, v1 = a1 b1, s = (a0 + a1)(b0 + b1);
-// (v0 - v1, (s - v0) - v1), the operation order of ops/curve.py.
-__device__ __forceinline__ Fe2 mul2(const Fe2& a, const Fe2& b) {
-  const Fe s = mul_lazy<Fq>(add<Fq>(a.c0, a.c1), add<Fq>(b.c0, b.c1));
-  const Fe v0 = mul_lazy<Fq>(a.c0, b.c0);
-  const Fe v1 = mul_lazy<Fq>(a.c1, b.c1);
-  return {sub<Fq>(v0, v1), sub<Fq>(sub<Fq>(s, v0), v1)};
-}
-
 }  // namespace ccf

@@ -115,9 +115,19 @@ def point_tile_scan(vt: torch.Tensor, ft: torch.Tensor, mixed: bool = False):
     return out, carry
 
 
+def _entry_resources(report: dict, prefix: str) -> dict:
+    return {group: {mode: report[f"{prefix}_{group}_{mode}"] for mode in ("madd", "add")}
+            for group in ("g1", "g2")}
+
+
 def tile_scan_resources(report: dict) -> dict:
     """{"g1"|"g2": {"madd"|"add": ptxas row}} of the four point_tile_scan
     entry kernels (csrc/curve_kernels.cu, ccf_tile_scan_<group>_<mode>) in a
     ptxas report (_build.ptxas_report); raises if one is missing."""
-    return {group: {mode: report[f"ccf_tile_scan_{group}_{mode}"] for mode in ("madd", "add")}
-            for group in ("g1", "g2")}
+    return _entry_resources(report, "ccf_tile_scan")
+
+
+def point_add_resources(report: dict) -> dict:
+    """The same for the four point_add entry kernels
+    (ccf_point_add_<group>_<mode>)."""
+    return _entry_resources(report, "ccf_point_add")

@@ -109,23 +109,47 @@ def _points(g2, n):
     return grp, pts
 
 
+def _add_operands(g2, n):
+    """(P, Q) affine point lists of length n. Row i by i % 12: 2, 3 P + P;
+    4, 5 P + (-P); 6 P the identity; 7 Q the identity; 8, 9 both; so each
+    case sits at an even and an odd row (both lanes' positions of a G2
+    pair), and a Q at infinity (7) has neighbours whose Q is not (6, 8) in
+    the same warp."""
+    grp, pts = _points(g2, max(n, 8))
+    pts = pts[:n]
+    q_pts = pts[-3:] + pts[:-3]
+    for i in range(n):
+        case = i % 12
+        if case in (2, 3):
+            q_pts[i] = pts[i]
+        elif case in (4, 5):
+            q_pts[i] = grp.neg(pts[i])
+        if case in (6, 8, 9):
+            pts[i] = None
+        if case in (7, 8, 9):
+            q_pts[i] = None
+    return grp, pts, q_pts
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g2", [False, True])
 @pytest.mark.parametrize("mixed", [False, True])
-def test_point_add(cuda, g2, mixed):
-    """General rows, identity operands, P + P and P + (-P)."""
-    grp, pts = _points(g2, 64)
-    q_pts = pts[-3:] + pts[:-3]
-    q_pts[10:20] = pts[10:20]
-    q_pts[20:25] = [grp.neg(p) for p in pts[20:25]]
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, 127, 129, 1000, 1001])
+def test_point_add(cuda, g2, mixed, n):
+    """Ragged n around the block edges (64 G1 points or 32 G2 pairs per
+    block) and pair edges; general rows, identity operands, P + P and
+    P + (-P)."""
+    grp, pts, q_pts = _add_operands(g2, n)
     P, Qp = _encode(g2, pts), _encode(g2, q_pts)
     if not mixed:  # general operands carry Z != 1
-        P = ck.point_add_plain(P, _encode(g2, [None] * 64))
+        ident = _encode(g2, [None] * n)
+        P, Qp = ck.point_add_plain(P, ident), ck.point_add_plain(Qp, ident)
     P, Qp = P.to(cuda), Qp.to(cuda)
     got = ck.point_add(P, Qp, mixed)
     _same(got, ck.point_add_plain(P, Qp, mixed))
     dec = cv.decode_g2_proj if g2 else cv.decode_g1_proj
-    assert dec(got) == [grp.add(a, b) for a, b in zip(pts, q_pts)]
+    rows = min(n, 72)  # the host's group law is slow; the plain version covers every row
+    assert dec(got[:rows]) == [grp.add(a, b) for a, b in zip(pts[:rows], q_pts[:rows])]
 
 
 def _scan_rows(g2, mixed, T, K):

@@ -212,17 +212,23 @@ def test_g2_tile_scan_vs_pallas():
     _tile_case(True, True, T=2, K=8)
 
 
+def _ptxas_lines(prefix):
+    """A synthetic `-Xptxas -v` log of the four entry kernels <prefix>_<group>_<mode>."""
+    lines = []
+    for i, name in enumerate(f"{prefix}_{g}_{m}" for g in ("g1", "g2") for m in ("madd", "add")):
+        lines += [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+                  f"ptxas info    : Function properties for {name}",
+                  f"    0 bytes stack frame, {8 * i} bytes spill stores, {4 * i} bytes spill loads",
+                  f"ptxas info    : Used {120 + i} registers, used 1 barriers, 5120 bytes smem"]
+    return lines
+
+
 def test_tile_scan_resources_from_ptxas_log(tmp_path):
     """The K8 entry kernels' registers and spills, as chip_smoke.py reads
     them from nvcc's `-Xptxas -v` log; a missing kernel raises."""
     from circom_compat_tpu_torch import _build
 
-    lines = []
-    for i, name in enumerate(f"ccf_tile_scan_{g}_{m}" for g in ("g1", "g2") for m in ("madd", "add")):
-        lines += [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
-                  f"ptxas info    : Function properties for {name}",
-                  f"    0 bytes stack frame, {8 * i} bytes spill stores, {4 * i} bytes spill loads",
-                  f"ptxas info    : Used {120 + i} registers, used 1 barriers, 5120 bytes smem"]
+    lines = _ptxas_lines("ccf_tile_scan")
     log = tmp_path / "curve_kernels.ptxas.txt"
     log.write_text("\n".join(lines) + "\n")
     res = ck.tile_scan_resources(_build.ptxas_report(log))
@@ -231,3 +237,21 @@ def test_tile_scan_resources_from_ptxas_log(tmp_path):
     log.write_text("\n".join(lines[:4]) + "\n")
     with pytest.raises(KeyError):
         ck.tile_scan_resources(_build.ptxas_report(log))
+
+
+def test_point_add_resources_from_ptxas_log(tmp_path):
+    """The K6/K7 entry kernels' rows, read from the same log as K8's: each
+    reader takes its own four kernels, and a missing one raises."""
+    from circom_compat_tpu_torch import _build
+
+    add_lines, scan_lines = _ptxas_lines("ccf_point_add"), _ptxas_lines("ccf_tile_scan")
+    log = tmp_path / "curve_kernels.ptxas.txt"
+    log.write_text("\n".join(scan_lines + add_lines) + "\n")
+    report = _build.ptxas_report(log)
+    res = ck.point_add_resources(report)
+    assert res["g1"]["madd"] == {"registers": 120, "spill_stores": 0, "spill_loads": 0}
+    assert res["g2"]["madd"] == {"registers": 122, "spill_stores": 16, "spill_loads": 8}
+    assert res == ck.tile_scan_resources(report)  # the same synthetic rows under other names
+    log.write_text("\n".join(scan_lines + add_lines[:-4]) + "\n")
+    with pytest.raises(KeyError):
+        ck.point_add_resources(_build.ptxas_report(log))
