@@ -5,14 +5,18 @@
 
 Phases (each passes or raises; nothing is caught):
   1. card: builds the CUDA kernels from csrc/ (nvcc, sm_90a), prints each
-     kernel's registers and spill bytes (ptxas; the K6/K7 and K8 entry
-     kernels by their C names) and the card's name and power limit;
+     kernel's registers and spill bytes (ptxas; the K3/K4, K6/K7 and K8
+     entry kernels by their C names, K3/K4's with each row length's block
+     shape, shared memory and resident warps) and the card's name and power
+     limit;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the 2^20-domain prove gives it, word for word (max_abs_err 0);
      K6/K7 at 2^20 pairs and at the path's largest general add (Phase C
      over the level-0 carries: 5,242,880 G1, 1,310,720 G2);
   3. each kernel's time (CUDA events, warmed up, averaged), its bound and
-     the plain version's time;
+     the plain version's time; K3/K4's bounds count the butterflies whose
+     twiddle is not one, and their rows are also checked and timed at the
+     2^13 flat chain's shape (16 rows of 512: DIF, DIT + pre);
   4. the main path: a 2^20-domain squaring-chain proof through
      DeviceProvingKey.from_matrix_rows and prove_prepared, against a
      synthetic key whose every point has a known discrete log, so the host
@@ -39,7 +43,8 @@ binary modes (2^20) and the K9 op chain (2^16 elements, K = 64) against
 their plain versions. Each kernel's launches are counted on the path that
 runs it (phase 4, 6 or 7, or 8 for K9), the counts set to 0 just before.
 The kernels line (JSON; the K6/K7 and K8 entries also carry ptxas's
-registers and spill bytes per mode) and then the result line close the
+registers and spill bytes per mode, the K3/K4 entries each mode's numbers
+and each entry kernel's resources) and then the result line close the
 output.
 Exits non-zero, printing no result, when there is no CUDA device.
 """
@@ -292,6 +297,13 @@ def main() -> int:
               f"{row['spill_stores']} B, spill loads {row['spill_loads']} B")
     scan_res = ck.tile_scan_resources(ptxas)
     add_res = ck.point_add_resources(ptxas)
+    ntt_res = {log: dict(registers=row["registers"], spill_bytes=row["spill_stores"] + row["spill_loads"],
+                         **fk.ntt_rows_launch_shape(log, dev))
+               for log, row in fk.ntt_rows_resources(ptxas).items()}
+    print("    K3/K4 entry kernels ccf_ntt_rows_log<k> (registers, spill B, threads, rows a block, "
+          "dynamic shared B, warps an SM): " + json.dumps(
+              {log: [r["registers"], r["spill_bytes"], r["threads"], r["rows_per_block"], r["smem_bytes"],
+                     r["warps_per_sm"]] for log, r in ntt_res.items()}))
     print("    K6/K7 entry kernels (registers, spill stores + loads B): " + json.dumps(
         {f"{g}_{m}": [row["registers"], row["spill_stores"] + row["spill_loads"]]
          for g, modes in add_res.items() for m, row in modes.items()}))
@@ -344,6 +356,9 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces, launches=0,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
+        if name.startswith("ntt_rows"):  # every mode's numbers on the kernels line
+            results[name].setdefault("modes", {})[note.strip()] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, max_abs_err=err)
 
     FP = "circom_compat_tpu/ops/field_pallas.py"
     CP = "circom_compat_tpu/ops/curve_pallas.py"
@@ -364,10 +379,17 @@ def main() -> int:
     check("fr_tile_scan", lambda: fk.fr_tile_scan(vt, ft), lambda: fk.fr_tile_scan_plain(vt, ft),
           20, 65 * n + 32 * T, 0, f"{FP}:228", FSRC)
 
+    def row_muls(rows, L):
+        """Butterfly multiplies of one stage sweep over rows of L: the
+        (L/2) log2 L butterflies less the L - 1 whose twiddle is one."""
+        return rows * ((L // 2) * (L.bit_length() - 1) - (L - 1))
+
     n1 = plan.n1
     x3 = a.reshape(n // n1, n1, 8)
     pre, post = b.reshape(x3.shape), lazy_fr(n).reshape(x3.shape)
-    stages = (n1.bit_length() - 1) * n // 2
+    stages = row_muls(n // n1, n1)
+    print(f"[3] ntt_rows bounds count {stages} butterfly multiplies a sweep at 2^{LOG_N} "
+          f"(rows of {n1}; {(n1.bit_length() - 1) * n // 2} butterflies, {n // n1 * (n1 - 1)} by one)")
     check("ntt_rows_low", lambda: fk.ntt_rows(x3, tw_dif=tb["tw1_inv"], pre=pre, post=post),
           lambda: fk.ntt_rows_plain(x3, tw_dif=tb["tw1_inv"], pre=pre, post=post),
           10, 128 * n, MAD * (stages + 2 * n), f"{FP}:387", FSRC, " DIF, pre + post mul")
@@ -378,7 +400,19 @@ def main() -> int:
     x4 = a.reshape(mid.shape)
     check("ntt_rows_mid", lambda: fk.ntt_rows(x4, tw_dif=tb["tw2_inv"], mid=mid, tw_dit=tb["tw2_fwd"]),
           lambda: fk.ntt_rows_plain(x4, tw_dif=tb["tw2_inv"], mid=mid, tw_dit=tb["tw2_fwd"]),
-          10, 96 * n, MAD * (2 * stages + n), f"{FP}:432", FSRC)
+          10, 96 * n, MAD * (2 * stages + n), f"{FP}:432", FSRC, " DIF, coset mid, DIT")
+    # the flat chain's rows at 2^13: 16 rows of LOW_BLOCK, DIF and DIT + pre
+    # (launch-bound: 16 blocks on 132 SMs)
+    small = 1 << LOG_SMALL
+    low = ntt.get_plan(small).tables(dev, "flat")
+    xf, pf = a[:small].reshape(-1, ntt.LOW_BLOCK, 8), b[:small].reshape(-1, ntt.LOW_BLOCK, 8)
+    fstages = row_muls(small // ntt.LOW_BLOCK, ntt.LOW_BLOCK)
+    check("ntt_rows_low", lambda: fk.ntt_rows(xf, tw_dif=low["low_inv"]),
+          lambda: fk.ntt_rows_plain(xf, tw_dif=low["low_inv"]),
+          200, 64 * small, MAD * fstages, f"{FP}:387", FSRC, f" flat DIF, 2^{LOG_SMALL}")
+    check("ntt_rows_low", lambda: fk.ntt_rows(xf, tw_dit=low["low_fwd"], pre=pf),
+          lambda: fk.ntt_rows_plain(xf, tw_dit=low["low_fwd"], pre=pf),
+          200, 96 * small, MAD * (fstages + small), f"{FP}:387", FSRC, f" flat DIT + pre, 2^{LOG_SMALL}")
     del a, b, vt, ft, x3, pre, post, x4
 
     # K5a/K5b: one stage of the flat chain, at the 2^13 path's shape (a
@@ -693,6 +727,8 @@ def main() -> int:
     print(f"[8] K9 G ops/s (n=2^16, K={K9_K}; {card}): "
           + json.dumps({k2: round(v, 3) for k2, v in rates.items()}))
 
+    for name in ("ntt_rows_low", "ntt_rows_mid"):
+        results[name].update(entry_kernels={f"ccf_ntt_rows_log{log}": r for log, r in ntt_res.items()})
     missing = [k2 for k2, row in results.items() if row["launches"] <= 0]
     if missing:
         raise AssertionError(f"no path counted launches of {missing}")

@@ -122,76 +122,264 @@ __global__ void fr_tile_scan_kernel(const uint32_t* __restrict__ v, const uint8_
   store(carry + 8 * t, acc);
 }
 
-// ---- K3/K4: all radix-2 stages of one row, resident in shared memory ------
-// Replaces field_pallas.ntt_low_stages_lm (:363, low mode) and
-// ntt_mid_stages_lm (:416, mid mode). Bound: operations: a 1024-row does
-// 10 * 512 butterfly multiplies (+ up to 2 * 1024 pointwise) per 64 KB of
-// row traffic. Design: one block per row, the row (L * 32 B, 32 KB at
-// L = 1024) in shared memory for all stages; each stage's twiddle is read
-// from the row's root table, tw[(j % half) * (L / 2 / half)], so no
-// per-stage twiddle stack exists. Order: optional pre-multiply, DIF stages
+// ---- K3/K4: all radix-2 stages of one row, one butterfly pair a thread -----
+// Replaces field_pallas.ntt_low_stages_lm (circom_compat_tpu/ops/
+// field_pallas.py:387, low mode) and ntt_mid_stages_lm (:432, mid mode),
+// both driving _stage_loop (:306). Order: optional pre-multiply, DIF stages
 // (descending, tw_dif), optional mid multiply, DIT stages (ascending,
 // tw_dit), optional post multiply (post_op 0) or post - x (post_op 1).
-__global__ void ntt_rows_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                                const uint32_t* __restrict__ tw_dif, const uint32_t* __restrict__ tw_dit,
-                                const uint32_t* __restrict__ pre, const uint32_t* __restrict__ mid,
-                                const uint32_t* __restrict__ post, int post_op, int log_len) {
-  extern __shared__ uint4 smem[];
-  Fe* s = reinterpret_cast<Fe*>(smem);
-  const int L = 1 << log_len;
-  const int H = L >> 1;
-  const int nt = blockDim.x;
-  const long long base = (long long)blockIdx.x * L;
+//
+// Bound: operations. A row of L = 2^n does (L/2) n butterflies, but the
+// L - 1 of them whose twiddle index is 0 multiply by one: the kernel (and
+// its plain version) skips those, leaving (L/2) n - (L - 1) Montgomery
+// multiplies (264 multiply-adds each) per stage sweep, plus L per pointwise
+// pre, mid or post multiply, against 32 B per element read or written. At
+// 2^20 (1024 rows of 1024): DIF + pre + post 0.0993 ms, DIT + pre +
+// post-sub 0.0828 ms, mid 0.1490 ms at 16.7 T multiply-adds/s.
+//
+// Design. A Montgomery multiply is one long carry chain (~600 SASS
+// instructions), so the card needs many warps in flight: a thread holds one
+// butterfly pair (two elements) in at most 64 registers, 1024 threads an
+// SM (32 warps; at L = 1024 two blocks of 512 threads, one row each).
+//  - Layouts. At stage st a warp holds the elements whose index agrees
+//    outside W + 1 = 6 consecutive bits [a, a + 5] (its lanes and the pair
+//    bit st). Stage st takes a = min(st, n - 6): the top stages share one
+//    layout and move between stages by __shfl_xor_sync (no barrier); every
+//    stage below takes a = st, so the bits under its pair bit are the
+//    warp's own, uniform over its lanes.
+//  - No multiply by one. pos, the butterfly's twiddle index, is i mod
+//    2^st; where the bits under st are warp bits (every stage with a = st)
+//    pos == 0 and the skip are warp-uniform and the twiddle is one
+//    broadcast load; in the top layout the few pos == 0 lanes idle.
+//  - A layout change (a stage with a = st) passes the pairs through shared
+//    memory, double-buffered so one barrier does: 4 barriers a direction at
+//    L = 1024 (and 3 at 512), against one a stage.
+//  - Shared memory without bank conflicts: an element's two 16-byte halves
+//    lie in two planes; chunk c sits at c ^ fold(c), fold XOR-ing the
+//    index's 3-bit groups above bit 2, so bit b lands on position b mod 3:
+//    where a = st a quarter-warp's lanes vary in three consecutive bits.
+//  - Twiddles through L1 from the row's root table (16 KB at L = 1024).
+//  - One entry kernel a row length, ccf_ntt_rows_log<n> (n = 0..12), so the
+//    stage loops unroll and ptxas reports each by name. A row of 256 to
+//    1024 has a block of L / 2 threads (the flat chain's 16 rows of 512 run
+//    16 blocks); shorter rows share a 128-thread block; rows of 2048 and
+//    4096 give a thread 2 and 4 pairs (one block an SM, 128 registers).
+constexpr int kNttMinThreads = 128;  // rows shorter than 256 share a block
+constexpr int kNttMaxThreads = 512;  // rows longer than 1024 give a thread several pairs
+constexpr int kNttSmThreads = 1024;  // threads an SM for one pair a thread: 65536 / 1024 = 64 registers
 
-  for (int l = threadIdx.x; l < L; l += nt) {
-    Fe v = load(x + 8 * (base + l));
-    if (pre) v = mul_lazy<Fr>(load(pre + 8 * (base + l)), v);
-    s[l] = v;
+template <int LOG_L>
+struct NttShape {
+  static constexpr int L = 1 << LOG_L;
+  static constexpr int P = LOG_L > 0 ? LOG_L - 1 : 0;  // pair-index bits of a row
+  static constexpr int W = P < 5 ? P : 5;              // lane bits inside a row
+  static constexpr int E = LOG_L > 0 ? 2 : 1;          // elements a pair (one at L = 1)
+  static constexpr int T = 1 << P;                     // pairs a row
+  static constexpr int TPR = T < kNttMaxThreads ? T : kNttMaxThreads;  // threads a row
+  static constexpr int V = T / TPR;                    // pairs a thread
+  static constexpr int THREADS = TPR > kNttMinThreads ? TPR : kNttMinThreads;
+  static constexpr int ROWS = THREADS / TPR;
+  static constexpr int MIN_BLOCKS = V == 1 ? kNttSmThreads / THREADS : 1;
+  static constexpr int TOP = LOG_L > W + 1 ? LOG_L - 1 - W : 0;  // a of the top stages' layout
+  static constexpr int BUF = ROWS * L;                 // elements a buffer
+  static constexpr int BUFS = TOP <= 0 ? 0 : (2 * BUF * 32 <= 227 * 1024 ? 2 : 1);
+  static constexpr int SMEM = BUFS * BUF * (int)sizeof(Fe);
+
+  static __device__ __forceinline__ int a_of(int st) { return st < TOP ? st : TOP; }
+  // row index of element e of pair t at stage st in the layout [a, a + W]:
+  // lanes fill [a, a + W] but st, the pair's other bits the rest
+  static __device__ __forceinline__ int index(int t, int e, int st, int a) {
+    const int r = st - a;
+    const int lane = t & ((1 << W) - 1), w = t >> W;
+    const int intra = (lane & ((1 << r) - 1)) | ((lane >> r) << (r + 1)) | (e << r);
+    return (w & ((1 << a) - 1)) | ((w >> a) << (a + W + 1)) | (intra << a);
   }
-  __syncthreads();
-  if (tw_dif) {
-    for (int st = log_len - 1; st >= 0; --st) {
-      const int half = 1 << st;
-      const int stride = H >> st;
-      for (int j = threadIdx.x; j < H; j += nt) {
-        const int pos = j & (half - 1);
-        const int i0 = ((j >> st) << (st + 1)) + pos;
-        const int i1 = i0 + half;
-        const Fe u = s[i0], v = s[i1];
-        const Fe w = load(tw_dif + 8 * (pos * stride));
-        s[i0] = add<Fr>(u, v);
-        s[i1] = mul_lazy<Fr>(w, sub<Fr>(u, v));
+};
+
+__device__ __forceinline__ int ntt_swizzle(int c) {
+  const int f = (c >> 3) ^ (c >> 6) ^ (c >> 9) ^ (c >> 12) ^ (c >> 15) ^ (c >> 18);
+  return c ^ (f & 7);
+}
+
+// element c of a two-plane buffer (plane = its number of 16-byte chunks)
+__device__ __forceinline__ void ntt_put(uint4* s, int plane, int c, const Fe& v) {
+  const int p = ntt_swizzle(c);
+  s[p] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  s[plane + p] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
+}
+
+__device__ __forceinline__ Fe ntt_get(const uint4* s, int plane, int c) {
+  const int p = ntt_swizzle(c);
+  const uint4 lo = s[p], hi = s[plane + p];
+  return Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+}
+
+template <int LOG_L>
+struct NttRow {
+  using S = NttShape<LOG_L>;
+  Fe v[S::V][2];  // [.][1] unused at L = 1
+  int p;        // the thread's index among its row's threads
+  int row0;     // the row's first element in a shared buffer
+  int st, a;    // the layout the registers hold
+  int parity;   // the shared buffer the next layout change writes
+  bool wrote;   // a layout change has happened (single buffer: barrier first)
+
+  __device__ __forceinline__ int t(int vt) const { return p + vt * S::TPR; }
+  __device__ __forceinline__ int at(int vt, int e) const { return S::index(t(vt), e, st, a); }
+
+  // registers -> layout of stage `to`: lanes swap one element (same a), or
+  // every pair passes through shared memory
+  __device__ __forceinline__ void move(uint4* smem, int to) {
+    const int ta = S::a_of(to);
+    if (ta == a) {
+      const int l = (to < st ? to : st) - a;  // the lane bit that swaps roles with the pair bit
+      const bool b = (p >> l) & 1;
+#pragma unroll
+      for (int vt = 0; vt < S::V; ++vt) {
+        Fe send = b ? v[vt][0] : v[vt][1];
+        Fe got;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) got.w[j] = __shfl_xor_sync(0xffffffffu, send.w[j], 1 << l);
+        if (b) {
+          v[vt][0] = got;
+        } else {
+          v[vt][1] = got;
+        }
       }
-      __syncthreads();
+    } else {
+      int from[S::V][2], to_idx[S::V][2];
+#pragma unroll
+      for (int vt = 0; vt < S::V; ++vt)
+#pragma unroll
+        for (int e = 0; e < S::E; ++e) from[vt][e] = at(vt, e);
+      st = to;
+      a = ta;
+#pragma unroll
+      for (int vt = 0; vt < S::V; ++vt)
+#pragma unroll
+        for (int e = 0; e < S::E; ++e) to_idx[vt][e] = at(vt, e);
+      pass(smem, from, to_idx);
     }
+    // both, unconditionally: the compiler then folds every later index to a
+    // constant (assigning them by branch cost 250 SASS instructions at L = 1024)
+    st = to;
+    a = ta;
   }
-  if (mid) {
-    for (int l = threadIdx.x; l < L; l += nt) s[l] = mul_lazy<Fr>(load(mid + 8 * (base + l)), s[l]);
+
+  // registers at row indices `from` -> shared memory -> registers at `to`
+  __device__ __forceinline__ void pass(uint4* smem, const int (&from)[S::V][2], const int (&to)[S::V][2]) {
+    if (S::BUFS == 1 && wrote) __syncthreads();  // every thread has read the last pass
+    uint4* buf = smem + (S::BUFS == 2 ? parity : 0) * 2 * S::BUF;
+#pragma unroll
+    for (int vt = 0; vt < S::V; ++vt)
+#pragma unroll
+      for (int e = 0; e < S::E; ++e) ntt_put(buf, S::BUF, row0 + from[vt][e], v[vt][e]);
     __syncthreads();
+#pragma unroll
+    for (int vt = 0; vt < S::V; ++vt)
+#pragma unroll
+      for (int e = 0; e < S::E; ++e) v[vt][e] = ntt_get(buf, S::BUF, row0 + to[vt][e]);
+    parity ^= 1;
+    wrote = true;
   }
-  if (tw_dit) {
-    for (int st = 0; st < log_len; ++st) {
-      const int half = 1 << st;
-      const int stride = H >> st;
-      for (int j = threadIdx.x; j < H; j += nt) {
-        const int pos = j & (half - 1);
-        const int i0 = ((j >> st) << (st + 1)) + pos;
-        const int i1 = i0 + half;
-        const Fe u = s[i0];
-        const Fe t = mul_lazy<Fr>(load(tw_dit + 8 * (pos * stride)), s[i1]);
-        s[i0] = add<Fr>(u, t);
-        s[i1] = sub<Fr>(u, t);
+
+  // one stage on every pair: DIF (u + v, (u - v) w), DIT (u + w v, u - w v);
+  // pos 0 (w = one) skips the multiply
+  template <bool DIF>
+  __device__ __forceinline__ void stage(const uint32_t* tw) {
+    const int half = 1 << st;
+#pragma unroll
+    for (int vt = 0; vt < S::V; ++vt) {
+      const int pos = at(vt, 0) & (half - 1);
+      Fe& u = v[vt][0];
+      Fe& x = v[vt][1];
+      if (DIF) {
+        const Fe d = sub<Fr>(u, x);
+        u = add<Fr>(u, x);
+        if (pos == 0) {
+          x = d;
+        } else {
+          x = mul_lazy<Fr>(load(tw + 8 * (pos << (LOG_L - 1 - st))), d);
+        }
+      } else {
+        Fe m;
+        if (pos == 0) {
+          m = x;
+        } else {
+          m = mul_lazy<Fr>(load(tw + 8 * (pos << (LOG_L - 1 - st))), x);
+        }
+        x = sub<Fr>(u, m);
+        u = add<Fr>(u, m);
       }
-      __syncthreads();
     }
   }
-  for (int l = threadIdx.x; l < L; l += nt) {
-    Fe v = s[l];
-    if (post) {
-      const Fe q = load(post + 8 * (base + l));
-      v = post_op == 0 ? mul_lazy<Fr>(q, v) : sub<Fr>(q, v);
+};
+
+template <int LOG_L>
+__device__ __forceinline__ void ntt_rows_body(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                                              const uint32_t* __restrict__ tw_dif,
+                                              const uint32_t* __restrict__ tw_dit,
+                                              const uint32_t* __restrict__ pre, const uint32_t* __restrict__ mid,
+                                              const uint32_t* __restrict__ post, int post_op, long long rows) {
+  using S = NttShape<LOG_L>;
+  extern __shared__ uint4 smem[];
+  NttRow<LOG_L> r;
+  r.p = threadIdx.x % S::TPR;
+  const int rb = threadIdx.x / S::TPR;
+  const long long row = (long long)blockIdx.x * S::ROWS + rb;
+  const bool live = row < rows;  // guards memory only: every thread reaches every barrier and shuffle
+  const long long g0 = row * S::L;
+  r.row0 = rb * S::L;
+  r.parity = 0;
+  r.wrote = false;
+  const bool dif = tw_dif != nullptr, dit = tw_dit != nullptr;
+  r.st = dif ? LOG_L - 1 : 0;
+  if (r.st < 0) r.st = 0;
+  r.a = S::a_of(r.st);
+
+#pragma unroll
+  for (int vt = 0; vt < S::V; ++vt)
+#pragma unroll
+    for (int e = 0; e < S::E; ++e) {
+      const long long i = g0 + r.at(vt, e);
+      Fe v = live ? load(x + 8 * i) : zero();
+      if (pre && live) v = mul_lazy<Fr>(load(pre + 8 * i), v);
+      r.v[vt][e] = v;
     }
-    store(out + 8 * (base + l), v);
+  if (dif) {
+#pragma unroll
+    for (int st = LOG_L - 1; st >= 0; --st) {
+      if (st < LOG_L - 1) r.move(smem, st);
+      r.template stage<true>(tw_dif);
+    }
+  }
+  if (mid && live) {
+#pragma unroll
+    for (int vt = 0; vt < S::V; ++vt)
+#pragma unroll
+      for (int e = 0; e < S::E; ++e)
+        r.v[vt][e] = mul_lazy<Fr>(load(mid + 8 * (g0 + r.at(vt, e))), r.v[vt][e]);
+  }
+  if (dit) {
+#pragma unroll
+    for (int st = 0; st < LOG_L; ++st) {
+      if (st > 0) r.move(smem, st);
+      r.template stage<false>(tw_dit);
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int vt = 0; vt < S::V; ++vt)
+#pragma unroll
+      for (int e = 0; e < S::E; ++e) {
+        const long long i = g0 + r.at(vt, e);
+        Fe v = r.v[vt][e];
+        if (post) {
+          const Fe q = load(post + 8 * i);
+          v = post_op == 0 ? mul_lazy<Fr>(q, v) : sub<Fr>(q, v);
+        }
+        store(out + 8 * i, v);
+      }
   }
 }
 
@@ -250,21 +438,74 @@ int ccf_fr_tile_scan(const void* v, const void* flags, void* out, void* carry, l
   return (int)cudaGetLastError();
 }
 
+// One entry kernel a row length 2^LOG (the K3/K4 ptxas rows by name).
+#define CCF_NTT_ROWS_KERNEL(LOG)                                                                        \
+  __global__ void __launch_bounds__(NttShape<LOG>::THREADS, NttShape<LOG>::MIN_BLOCKS)                 \
+      ccf_ntt_rows_log##LOG(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,                 \
+                            const uint32_t* __restrict__ tw_dif, const uint32_t* __restrict__ tw_dit,   \
+                            const uint32_t* __restrict__ pre, const uint32_t* __restrict__ mid,         \
+                            const uint32_t* __restrict__ post, int post_op, long long rows) {           \
+    ntt_rows_body<LOG>(x, out, tw_dif, tw_dit, pre, mid, post, post_op, rows);                          \
+  }
+CCF_NTT_ROWS_KERNEL(0)
+CCF_NTT_ROWS_KERNEL(1)
+CCF_NTT_ROWS_KERNEL(2)
+CCF_NTT_ROWS_KERNEL(3)
+CCF_NTT_ROWS_KERNEL(4)
+CCF_NTT_ROWS_KERNEL(5)
+CCF_NTT_ROWS_KERNEL(6)
+CCF_NTT_ROWS_KERNEL(7)
+CCF_NTT_ROWS_KERNEL(8)
+CCF_NTT_ROWS_KERNEL(9)
+CCF_NTT_ROWS_KERNEL(10)
+CCF_NTT_ROWS_KERNEL(11)
+CCF_NTT_ROWS_KERNEL(12)
+
+typedef void (*NttRowsKernel)(const uint32_t*, uint32_t*, const uint32_t*, const uint32_t*, const uint32_t*,
+                              const uint32_t*, const uint32_t*, int, long long);
+struct NttRowsEntry {
+  NttRowsKernel kernel;
+  int threads, rows, smem;
+};
+#define CCF_NTT_ENTRY(LOG) \
+  { ccf_ntt_rows_log##LOG, NttShape<LOG>::THREADS, NttShape<LOG>::ROWS, NttShape<LOG>::SMEM }
+static const NttRowsEntry kNttRows[13] = {
+    CCF_NTT_ENTRY(0), CCF_NTT_ENTRY(1), CCF_NTT_ENTRY(2),  CCF_NTT_ENTRY(3),  CCF_NTT_ENTRY(4),
+    CCF_NTT_ENTRY(5), CCF_NTT_ENTRY(6), CCF_NTT_ENTRY(7),  CCF_NTT_ENTRY(8),  CCF_NTT_ENTRY(9),
+    CCF_NTT_ENTRY(10), CCF_NTT_ENTRY(11), CCF_NTT_ENTRY(12)};
+
+static int ntt_rows_prepare(int log_len) {
+  if (log_len < 0 || log_len > 12) return (int)cudaErrorInvalidValue;
+  const NttRowsEntry& e = kNttRows[log_len];
+  if (e.smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute((const void*)e.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, e.smem);
+  return 0;
+}
+
 int ccf_ntt_rows(const void* x, void* out, const void* tw_dif, const void* tw_dit, const void* pre,
                  const void* mid, const void* post, int post_op, long long rows, int log_len,
                  void* stream) {
+  const int rc = ntt_rows_prepare(log_len);
+  if (rc != 0) return rc;
   if (rows > 0) {
-    const int L = 1 << log_len;
-    const size_t smem = (size_t)L * sizeof(Fe);
-    if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(ntt_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    }
-    const int threads = L / 2 < 512 ? (L / 2 > 0 ? L / 2 : 1) : 512;
-    ntt_rows_kernel<<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>(
+    const NttRowsEntry& e = kNttRows[log_len];
+    e.kernel<<<(unsigned)((rows + e.rows - 1) / e.rows), e.threads, e.smem, (cudaStream_t)stream>>>(
         (const uint32_t*)x, (uint32_t*)out, (const uint32_t*)tw_dif, (const uint32_t*)tw_dit,
-        (const uint32_t*)pre, (const uint32_t*)mid, (const uint32_t*)post, post_op, log_len);
+        (const uint32_t*)pre, (const uint32_t*)mid, (const uint32_t*)post, post_op, rows);
   }
   return (int)cudaGetLastError();
+}
+
+// info[0..3] of the row length 2^log_len's launch: threads a block, rows a
+// block, dynamic shared memory bytes, resident blocks an SM (occupancy)
+int ccf_ntt_rows_info(int log_len, int* info) {
+  const int rc = ntt_rows_prepare(log_len);
+  if (rc != 0) return rc;
+  const NttRowsEntry& e = kNttRows[log_len];
+  info[0] = e.threads;
+  info[1] = e.rows;
+  info[2] = e.smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], e.kernel, e.threads, e.smem);
 }
 
 }  // extern "C"

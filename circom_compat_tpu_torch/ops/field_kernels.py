@@ -8,7 +8,10 @@ with their plain PyTorch versions.
   fr_tile_scan        K2   within-tile segmented inclusive scan, lazy add
   ntt_rows            K3   all radix-2 stages of each row (low mode) with
                            fused pre-multiply and post-multiply / -subtract
-                      K4   the four-step middle: DIF stages, x mid, DIT
+                      K4   the four-step middle: DIF stages, x mid, DIT;
+                           a butterfly whose twiddle index is 0 (w^0 = one)
+                           skips its multiply, in the kernel and the plain
+                           version alike
   fr_butterfly_stage  K5a  one radix-2 stage (DIT or DIF) over the whole
                       K5b  vector: the flat NTT chain's high stages
 
@@ -20,6 +23,7 @@ as "f_binary_fq").
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -150,6 +154,9 @@ def fr_tile_scan(vt: torch.Tensor, ft: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+NTT_ROWS_MAX_LOG = 12  # the kernel keeps a row in shared memory: L <= 4096
+
+
 def _stage_pairs(s: torch.Tensor, st: int):
     rows, L = s.shape[:2]
     half = 1 << st
@@ -161,6 +168,15 @@ def _stage_tw(tw: torch.Tensor, L: int, st: int) -> torch.Tensor:
     half = 1 << st
     idx = torch.arange(half, device=tw.device) * ((L // 2) >> st)
     return tw[idx]  # (half, 16), broadcast over rows and groups
+
+
+def _times_tw(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """w * v for a stage's butterflies (v (rows, groups, half, 16)), but v
+    itself where the twiddle index is 0: the table's w^0 is one, and the
+    kernel skips that multiply (whose lazy result may differ from v by p)."""
+    out = v.clone()
+    out[:, :, 1:] = fl.mont_mul_lazy(fl.FR, w[1:], v[:, :, 1:])
+    return out
 
 
 def ntt_rows_plain(x, tw_dif=None, tw_dit=None, pre=None, mid=None, post=None,
@@ -176,16 +192,15 @@ def ntt_rows_plain(x, tw_dif=None, tw_dit=None, pre=None, mid=None, post=None,
         for st in range(log_len - 1, -1, -1):
             u, v = _stage_pairs(s, st)
             w = _stage_tw(tw, L, st)
-            s = torch.stack(
-                (fl.add_lazy(F, u, v), fl.mont_mul_lazy(F, w, fl.sub_lazy(F, u, v))), dim=2
-            ).reshape(rows, L, 16)
+            s = torch.stack((fl.add_lazy(F, u, v), _times_tw(w, fl.sub_lazy(F, u, v))),
+                            dim=2).reshape(rows, L, 16)
     if mid is not None:
         s = fl.mont_mul_lazy(F, fl.words_to_limbs(mid), s)
     if tw_dit is not None:
         tw = fl.words_to_limbs(tw_dit)
         for st in range(log_len):
             u, v = _stage_pairs(s, st)
-            t = fl.mont_mul_lazy(F, _stage_tw(tw, L, st), v)
+            t = _times_tw(_stage_tw(tw, L, st), v)
             s = torch.stack((fl.add_lazy(F, u, t), fl.sub_lazy(F, u, t)), dim=2).reshape(rows, L, 16)
     if post is not None:
         q = fl.words_to_limbs(post)
@@ -214,7 +229,7 @@ def ntt_rows(x: torch.Tensor, tw_dif=None, tw_dit=None, pre=None, mid=None, post
         raise ValueError(post_op)
     if _build.runs_plain(x):
         return ntt_rows_plain(x, tw_dif, tw_dit, pre, mid, post, post_op)
-    if L > 4096:
+    if L > 1 << NTT_ROWS_MAX_LOG:
         raise ValueError("ntt_rows keeps a row in shared memory: at most 4096 elements")
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -224,6 +239,24 @@ def ntt_rows(x: torch.Tensor, tw_dif=None, tw_dit=None, pre=None, mid=None, post
     _build.check(rc, "ntt_rows")
     LAUNCHES["ntt_rows_mid" if mid is not None else "ntt_rows_low"] += 1
     return out
+
+
+def ntt_rows_resources(report: dict) -> dict:
+    """{log2 L: ptxas row} of the ntt_rows entry kernels
+    (csrc/field_kernels.cu, ccf_ntt_rows_log<k>, one a row length) in a
+    ptxas report (_build.ptxas_report); raises if one is missing."""
+    return {k: report[f"ccf_ntt_rows_log{k}"] for k in range(NTT_ROWS_MAX_LOG + 1)}
+
+
+def ntt_rows_launch_shape(log_len: int, device=None) -> dict:
+    """The launch of rows of 2^log_len on the card: threads and rows a block,
+    dynamic shared memory bytes, resident blocks and warps an SM."""
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = _build.lib("field_kernels").ccf_ntt_rows_info(log_len, info)
+    _build.check(rc, "ntt_rows_info")
+    return dict(threads=info[0], rows_per_block=info[1], smem_bytes=info[2], blocks_per_sm=info[3],
+                warps_per_sm=info[3] * info[0] // 32)
 
 
 # ---------------------------------------------------------------------------

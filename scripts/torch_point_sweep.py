@@ -1,27 +1,33 @@
 #!/usr/bin/env python3
-"""The point kernels K6/K7 (point_add) and K8 (point_tile_scan) of this
-tree beside other builds, on one NVIDIA GPU.
+"""The point kernels K6/K7 (point_add) and K8 (point_tile_scan), and the
+NTT row kernel K3/K4 (ntt_rows), of this tree beside other builds, on one
+NVIDIA GPU.
 
     python3 scripts/torch_point_sweep.py [--source DIR ...] [--vary SPEC ...]
-        [--kernels add,scan] [--reps N] [--sass]
+        [--kernels add,scan,ntt] [--reps N] [--sass]
 
-Builds this tree's csrc/curve_kernels.cu, the one in each --source directory
-(another tree's csrc/, e.g. a parent commit's) and, for each --vary SPEC, a
-copy of this tree's csrc/ with constants of curve_kernels.cu changed
-(SPEC = "NAME=VALUE[,NAME=VALUE]", e.g. "kAddBlocksG1=8"), all nvcc runs in
-parallel. Prints each build's ptxas registers and spill bytes for its point
-kernels, then times every build on the same inputs with CUDA events, in
-turns (A, B, ..., B, A), and checks that every build returns this tree's
-words:
+Builds the sources the chosen kernels need (csrc/curve_kernels.cu for add
+and scan, csrc/field_kernels.cu for ntt) from this tree, from each --source
+directory (another tree's csrc/, e.g. a parent commit's) and, for each
+--vary SPEC, from a copy of this tree's csrc/ with constants changed (SPEC =
+"NAME=VALUE[,NAME=VALUE]", e.g. "kAddBlocksG1=8" or "kNttLogE=2"; each NAME
+a constexpr of exactly one source), all nvcc runs in parallel. Prints each
+build's ptxas registers and spill bytes for the chosen kernels, then times
+every build on the same inputs with CUDA events, in turns (A, B, ..., B,
+A), and checks that every build returns this tree's words:
   add   K6/K7 at the path's shapes: G2 general add at 1,310,720 and 163,840
         (the 2^20 prove's Phase C), 16,384 (the 2^13 prove's largest) and a
         2^19 madd (a setup chunk of the fixed-base fold); G1 general add at
         5,242,880, 655,360 and 65,536, and a 2^19 madd;
-  scan  K8 at the 2^20 prove's level-0 madd and level-1 add (G1 and G2).
-The inputs are seeded random lazy Fq words, Z = one for madd (1 row in 97
-the identity), one scan flag in 128: the kernels' arithmetic does not
+  scan  K8 at the 2^20 prove's level-0 madd and level-1 add (G1 and G2);
+  ntt   K3/K4 at the 2^20 prove's three modes (1024 rows of 1024: DIF +
+        pre + post, DIT + pre + post-sub, mid) and the 2^13 flat chain's
+        rows (16 of 512: DIF, DIT + pre), on the plan's own tables.
+The point inputs are seeded random lazy Fq words, Z = one for madd (1 row
+in 97 the identity), one scan flag in 128: the kernels' arithmetic does not
 depend on the points lying on the curve, and chip_smoke.py holds the
-kernels against their plain versions on curve points.
+kernels against their plain versions on curve points. The ntt inputs are
+seeded lazy Fr words.
 """
 
 import argparse
@@ -47,7 +53,10 @@ ADD_SHAPES = (("g2", "add", 1_310_720), ("g2", "add", 163_840), ("g2", "add", 16
 SCAN_SHAPES = (("g1", "madd", 5_242_880), ("g1", "add", 327_680),
                ("g2", "madd", 1_310_720), ("g2", "add", 81_920))
 Q_TOP = 0x30644E72  # top word of q: keeps random words below 2q
-POINT_KERNELS = ("point_add", "tile_scan")  # substrings of the kernels' (mangled) names
+R_TOP = 0x30644E72  # top word of r (the same): keeps random words below 2r
+# kernel set -> (source, substrings of its kernels' (mangled) names)
+SETS = {"add": ("curve_kernels", ("point_add",)), "scan": ("curve_kernels", ("tile_scan",)),
+        "ntt": ("field_kernels", ("ntt_rows",))}
 
 
 def varied_copy(spec: str, root: Path) -> Path:
@@ -55,51 +64,59 @@ def varied_copy(spec: str, root: Path) -> Path:
     d = root / "csrc"
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_build.CSRC, d)
-    path = d / "curve_kernels.cu"
-    text = path.read_text()
     for item in spec.split(","):
         name, value = item.split("=")
-        text, count = re.subn(rf"(constexpr \w+ {name} = )[^;]+;", rf"\g<1>{value};", text)
-        if count != 1:
-            raise ValueError(f"--vary {spec}: no single constant {name} in curve_kernels.cu")
-    path.write_text(text)
+        hits = 0
+        for path in sorted(d.glob("*.cu")):
+            text, count = re.subn(rf"(constexpr \w+ {name} = )[^;]+;", rf"\g<1>{value};",
+                                  path.read_text())
+            if count:
+                path.write_text(text)
+            hits += count
+        if hits != 1:
+            raise ValueError(f"--vary {spec}: no single constant {name} in csrc/*.cu")
     return d
 
 
-def build(sources):
-    """{tag: csrc dir} -> {tag: (library, ptxas rows of its point kernels)}."""
+def build(sources, names, markers):
+    """{tag: csrc dir} -> {tag: ({source: library}, ptxas rows of the kernels
+    whose names hold one of `markers`)}; builds each of `names` per tree."""
     procs = []
     for tag, src in sources.items():
         d = _build.CACHE / "sweep" / tag
         d.mkdir(parents=True, exist_ok=True)
-        log = open(d / "ptxas.txt", "w")
-        cmd = _build.nvcc_command(Path(src) / "curve_kernels.cu", d / "curve_kernels.so")
-        procs.append((tag, d, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+        for name in names:
+            log = open(d / f"{name}.ptxas.txt", "w")
+            cmd = _build.nvcc_command(Path(src) / f"{name}.cu", d / f"{name}.so")
+            procs.append((tag, name, d, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
     libs = {}
-    for tag, d, log, proc in procs:
+    for tag, name, d, log, proc in procs:
         rc = proc.wait()
         log.close()
         if rc != 0:
-            raise RuntimeError(f"nvcc failed for {tag}:\n{(d / 'ptxas.txt').read_text()[-3000:]}")
-        lib = ctypes.CDLL(str(d / "curve_kernels.so"))
-        for fn, argtypes in _build.SIGNATURES["curve_kernels"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        report = _build.ptxas_report(d / "ptxas.txt")
-        libs[tag] = (lib, {k: row for k, row in report.items() if any(s in k for s in POINT_KERNELS)})
+            raise RuntimeError(f"nvcc failed for {tag}:\n{(d / f'{name}.ptxas.txt').read_text()[-3000:]}")
+        lib = ctypes.CDLL(str(d / f"{name}.so"))
+        for fn, argtypes in _build.SIGNATURES[name].items():
+            if hasattr(lib, fn):  # another tree may lack a newer entry point
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+        report = _build.ptxas_report(d / f"{name}.ptxas.txt")
+        found, res = libs.setdefault(tag, ({}, {}))
+        found[name] = lib
+        res.update({k: row for k, row in report.items() if any(m in k for m in markers)})
     return libs
 
 
-def sass_histogram(so: Path) -> dict:
+def sass_histogram(so: Path, markers) -> dict:
     """{kernel: (static instruction count, the 12 most frequent opcodes)}
-    of the point kernels in a library, from cuobjdump -sass."""
+    of the kernels whose names hold one of `markers`, from cuobjdump -sass."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(so)], check=True, capture_output=True, text=True).stdout
     hist, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if any(s in m.group(1) for s in POINT_KERNELS) else None
+            name = m.group(1) if any(s in m.group(1) for s in markers) else None
             if name:
                 hist[name] = collections.Counter()
             continue
@@ -126,8 +143,9 @@ def random_points(group, mode, lead, gen, dev):
     return v
 
 
-def run_case(libs, tags, launch_of, reps):
-    """Times each build on one case, in turns; returns {tag: [ms, ms]}."""
+def run_case(libs, tags, launch_of, reps, same=None):
+    """Times each build on one case, in turns; returns {tag: [ms, ms]}.
+    same(tag, outputs, reference) replaces word-for-word equality."""
     import torch
 
     ref = None  # this tree's words, from its first turn
@@ -145,9 +163,61 @@ def run_case(libs, tags, launch_of, reps):
         times[tag].append(s.elapsed_time(e) / reps)
         if ref is None:
             ref = [o.clone() for o in outputs]
+        elif same is not None:
+            same(tag, outputs, ref)
         elif not all(torch.equal(a, b) for a, b in zip(outputs, ref)):
             raise AssertionError(f"{tag} differs from this tree")
     return times
+
+
+def ntt_cases(libs, tags, gen, dev, stream, reps, report):
+    """K3/K4 at the 2^20 prove's three modes and the 2^13 flat chain's rows."""
+    import torch
+
+    from circom_compat_tpu_torch.ops import field_kernels as fk
+    from circom_compat_tpu_torch.ops import ntt
+
+    def lazy(shape):
+        v = torch.randint(-2**31, 2**31, shape + (8,), dtype=torch.int32, device=dev, generator=gen)
+        v[..., 7] = torch.remainder(v[..., 7].to(torch.int64), 2 * R_TOP).to(torch.int32)
+        return v
+
+    four = ntt.get_plan(1 << 20).tables(dev, "four_step")
+    flat = ntt.get_plan(1 << 13).tables(dev, "flat")
+    x, pre, post = (lazy((1024, 1024)) for _ in range(3))
+    xs, pres = lazy((16, 512)), lazy((16, 512))
+    mid = four["coset4"].reshape(1024, 1024, 8)
+    # name, x, (tw_dif, tw_dit, pre, mid, post, post_op), launches per timed turn
+    cases = (("2^20 DIF + pre + post", x, (four["tw1_inv"], None, pre, None, post, 0), reps),
+             ("2^20 DIT + pre + post-sub", x, (None, four["tw1_fwd"], pre, None, post, 1), reps),
+             ("2^20 mid", x, (four["tw2_inv"], four["tw2_fwd"], None, mid, None, 0), reps),
+             ("2^13 flat DIF", xs, (flat["low_inv"], None, None, None, None, 0), 20 * reps),
+             ("2^13 flat DIT + pre", xs, (None, flat["low_fwd"], pres, None, None, 0), 20 * reps))
+    one = torch.tensor([1, 0, 0, 0, 0, 0, 0, 0], dtype=torch.int32, device=dev)
+
+    def same_ntt(tag, outputs, ref):
+        """This tree's copies return its words; another tree (one without
+        the skip of multiplies by one) the same values mod r."""
+        if torch.equal(outputs[0], ref[0]):
+            return
+        canon = [fk.fr_binary_plain("mul_canon", o.reshape(-1, 8), one) for o in (outputs[0], ref[0])]
+        if tag.startswith("source-") and torch.equal(*canon):
+            return
+        raise AssertionError(f"{tag} differs from this tree")
+
+    for name, xin, (tw_dif, tw_dit, p, m, q, post_op), n_reps in cases:
+        out = torch.empty_like(xin)
+        ptr = [None if t is None else t.data_ptr() for t in (tw_dif, tw_dit, p, m, q)]
+        rows, L = xin.shape[:2]
+
+        def launch_of(lib, tag):
+            def launch():
+                rc = lib["field_kernels"].ccf_ntt_rows(xin.data_ptr(), out.data_ptr(), *ptr, post_op, rows,
+                                                       L.bit_length() - 1, stream)
+                _build.check(rc, f"ntt_rows ({tag})")
+            return launch, (out,)
+
+        report(f"ntt {name}", run_case(libs, tags, launch_of, n_reps, same_ntt), rows * L)
 
 
 def main() -> int:
@@ -156,7 +226,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--source", nargs="*", default=[], help="other csrc directories")
     ap.add_argument("--vary", nargs="*", default=[], help="NAME=VALUE[,NAME=VALUE] copies of this csrc")
-    ap.add_argument("--kernels", default="add,scan", help="add (K6/K7), scan (K8) or both")
+    ap.add_argument("--kernels", default="add,scan", help="any of add (K6/K7), scan (K8), ntt (K3/K4)")
     ap.add_argument("--reps", type=int, default=3, help="launches per timed turn (more for small n)")
     ap.add_argument("--sass", action="store_true", help="print SASS opcode counts")
     args = ap.parse_args()
@@ -168,20 +238,23 @@ def main() -> int:
     sources = {"this": _build.CSRC, **{f"source-{i}": s for i, s in enumerate(args.source)}}
     for spec in args.vary:
         sources[spec] = varied_copy(spec, _build.CACHE / "sweep" / f"vary-{len(sources)}")
+    kernels = args.kernels.split(",")
+    names = sorted({SETS[k][0] for k in kernels})
+    markers = tuple(m for k in kernels for m in SETS[k][1])
     t0 = time.perf_counter()
-    libs = build(sources)
+    libs = build(sources, names, markers)
     print(f"{card}; built {len(libs)} trees in {time.perf_counter() - t0:.1f} s")
     for tag, (_, res) in libs.items():
         print(f"ptxas {tag} ({sources[tag]}): {json.dumps(res)}")
         if args.sass:
-            so = _build.CACHE / "sweep" / tag / "curve_kernels.so"
-            for kern, (count, top) in sass_histogram(so).items():
-                print(f"sass {tag} {kern}: {count} instructions; {top}")
+            for name in names:
+                so = _build.CACHE / "sweep" / tag / f"{name}.so"
+                for kern, (count, top) in sass_histogram(so, markers).items():
+                    print(f"sass {tag} {kern}: {count} instructions; {top}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
     stream = torch.cuda.current_stream().cuda_stream
     tags = list(libs)
-    kernels = args.kernels.split(",")
     results = {}
 
     def report(key, times, n):
@@ -197,7 +270,7 @@ def main() -> int:
 
             def launch_of(lib, tag):
                 def launch():
-                    rc = lib.ccf_point_add(int(group == "g2"), int(mode == "madd"), p.data_ptr(),
+                    rc = lib["curve_kernels"].ccf_point_add(int(group == "g2"), int(mode == "madd"), p.data_ptr(),
                                            q.data_ptr(), out.data_ptr(), n, stream)
                     _build.check(rc, f"point_add ({tag})")
                 return launch, (out,)
@@ -214,7 +287,7 @@ def main() -> int:
 
             def launch_of(lib, tag):
                 def launch():
-                    rc = lib.ccf_point_tile_scan(int(group == "g2"), int(mode == "madd"), v.data_ptr(),
+                    rc = lib["curve_kernels"].ccf_point_tile_scan(int(group == "g2"), int(mode == "madd"), v.data_ptr(),
                                                  f.data_ptr(), out.data_ptr(), carry.data_ptr(), T, 16,
                                                  stream)
                     _build.check(rc, f"point_tile_scan ({tag})")
@@ -223,6 +296,8 @@ def main() -> int:
             report(f"scan {group} {mode} T={T}", run_case(libs, tags, launch_of, args.reps), T * 16)
             del v, f, out, carry
             torch.cuda.empty_cache()
+    if "ntt" in kernels:
+        ntt_cases(libs, tags, gen, dev, stream, args.reps, report)
     print(json.dumps({"card": card, "ms": results,
                       "ptxas": {tag: res for tag, (_, res) in libs.items()}}))
     return 0

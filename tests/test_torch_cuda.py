@@ -78,22 +78,41 @@ def test_fr_tile_scan(cuda):
     _same(carry, want_carry)
 
 
+def _upper_lazy_words(n, p, dev):
+    """n words at the top of the lazy range: values in [p, 2p), led by p and
+    2p - 1."""
+    vals = [p, 2 * p - 1] + [RNG.randrange(p, 2 * p) for _ in range(n - 2)]
+    return torch.from_numpy(lc.ints_to_words(vals[:n])).to(dev)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [16, 1024])
-def test_ntt_rows(cuda, L):
+@pytest.mark.parametrize("L,rows", [(L, rows) for L in (1, 2, 4, 16, 512, 1024, 2048, 4096)
+                                    for rows in ((1, 3, 1000) if L <= 1024 else (1, 3))])
+def test_ntt_rows(cuda, L, rows):
+    """Every mode at every row length the wrapper takes, on 1, 3 and 1000
+    rows (1000: a ragged last block for every block shape), with operands
+    at the top of the lazy range: word for word equal to the plain version."""
     from circom_compat_tpu_torch.ops import ntt
 
-    plan = ntt.get_plan(L * L)
-    tb = plan.tables(cuda, "four_step")
-    rows = 3
-    x, pre, post, mid = (_lazy_words(rows * L, R_SCALAR, cuda).reshape(rows, L, 8) for _ in range(4))
-    cases = [
-        dict(tw_dif=tb["tw1_inv"], pre=pre, post=post),
-        dict(tw_dit=tb["tw1_fwd"], pre=pre, post=post, post_op="sub"),
-        dict(tw_dif=tb["tw1_inv"], mid=mid, tw_dit=tb["tw1_fwd"]),
-    ]
-    for kw in cases:
-        _same(fk.ntt_rows(x, **kw), fk.ntt_rows_plain(x, **kw))
+    root = ntt.fr_root_of_unity(L) if L > 1 else 1
+    tw_inv, tw_fwd = (torch.from_numpy(ntt._power_table(w, max(L // 2, 1))).to(cuda)
+                      for w in (pow(root, -1, R_SCALAR), root))
+    x, pre, post, mid = (_upper_lazy_words(rows * L, R_SCALAR, cuda).reshape(rows, L, 8)
+                         for _ in range(4))
+    # the four-step chain's five modes (ops/ntt.py witness_map_four_step),
+    # the flat chain's DIF-only rows, DIT only
+    cases = {
+        "dif_pre_post_mul": dict(tw_dif=tw_inv, pre=pre, post=post),
+        "mid": dict(tw_dif=tw_inv, mid=mid, tw_dit=tw_fwd),
+        "dit_pre": dict(tw_dit=tw_fwd, pre=pre),
+        "dit_pre_post_mul": dict(tw_dit=tw_fwd, pre=pre, post=post),
+        "dit_pre_post_sub": dict(tw_dit=tw_fwd, pre=pre, post=post, post_op="sub"),
+        "dif": dict(tw_dif=tw_inv),
+        "dit": dict(tw_dit=tw_fwd),
+    }
+    for mode, kw in cases.items():
+        got, want = fk.ntt_rows(x, **kw), fk.ntt_rows_plain(x, **kw)
+        assert torch.equal(got.cpu(), want.cpu()), mode
 
 
 def _encode(g2, pts):

@@ -181,3 +181,99 @@ def test_ntt_rows_is_a_transform():
     fwd_then_back = fk.ntt_rows(fk.ntt_rows(x, tw_dif=tb["tw1_fwd"]), tw_dit=tb["tw1_inv"],
                                 post=inv_l)
     assert _canon(_ints(fwd_then_back.reshape(-1, 8)), R_SCALAR) == _ints(x.reshape(-1, 8))
+
+
+# Every mode of the row kernel: (DIF table, DIT table, pre, mid, post, post_op)
+_ROW_MODES = {
+    "dif": (True, False, False, False, False, "mul"),
+    "dit": (False, True, False, False, False, "mul"),
+    "dif_pre_post_mul": (True, False, True, False, True, "mul"),
+    "dit_pre_post_sub": (False, True, True, False, True, "sub"),
+    "mid": (True, True, False, True, False, "mul"),
+    "mid_pre_post_sub": (True, True, True, True, True, "sub"),
+}
+
+
+def _dft(a, w):
+    """X_k = sum_i a_i w^(i k) mod r, by even/odd recursion (Python ints)."""
+    n = len(a)
+    if n == 1:
+        return list(a)
+    w2 = w * w % R_SCALAR
+    even, odd = _dft(a[0::2], w2), _dft(a[1::2], w2)
+    out, t = [0] * n, 1
+    for k in range(n // 2):
+        v = t * odd[k] % R_SCALAR
+        out[k], out[k + n // 2] = (even[k] + v) % R_SCALAR, (even[k] - v) % R_SCALAR
+        t = t * w % R_SCALAR
+    return out
+
+
+def _rev_list(a):
+    bits = len(a).bit_length() - 1
+    return [a[int(format(i, f"0{bits}b")[::-1], 2) if bits else 0] for i in range(len(a))]
+
+
+def _row_reference(x, pre, mid, post, post_op, w_dif, w_dit):
+    """One row through the kernel's semantics in field values (word / R mod
+    r): x * pre, DIF (natural -> bit-reversed DFT by w_dif), * mid, DIT
+    (bit-reversed -> natural DFT by w_dit), then post * x or post - x."""
+    val = [v * pow(MONT, -1, R_SCALAR) % R_SCALAR for v in x]
+    if pre is not None:
+        val = [a * b % R_SCALAR for a, b in zip(val, pre)]
+    if w_dif is not None:
+        val = _rev_list(_dft(val, w_dif))
+    if mid is not None:
+        val = [a * b % R_SCALAR for a, b in zip(val, mid)]
+    if w_dit is not None:
+        val = _dft(_rev_list(val), w_dit)
+    if post is not None:
+        val = [(q * a if post_op == "mul" else q - a) % R_SCALAR for q, a in zip(post, val)]
+    return val
+
+
+@pytest.mark.parametrize("mode", sorted(_ROW_MODES))
+@pytest.mark.parametrize("L", [1, 2, 4, 512, 1024])
+def test_ntt_rows_modes(L, mode):
+    """Every ntt_rows mode over a few rows of L: against the JAX package's
+    ntt_low_stages_lm / ntt_mid_stages_lm in interpret mode (L = 2, 4: the
+    modes those kernels take), and at every L against the transform
+    property in field values (_row_reference); every output word < 2r."""
+    has_dif, has_dit, has_pre, has_mid, has_post, post_op = _ROW_MODES[mode]
+    rows, log = (3 if L <= 4 else 2), L.bit_length() - 1
+    root = tntt.fr_root_of_unity(L) if L > 1 else 1
+    w_inv = pow(root, -1, R_SCALAR)
+    tw_inv = torch.from_numpy(tntt._power_table(w_inv, max(L // 2, 1)))
+    tw_fwd = torch.from_numpy(tntt._power_table(root, max(L // 2, 1)))
+    x, pre, mid, post = (_words(_lazy(max(rows * L, 4), R_SCALAR)[: rows * L]).reshape(rows, L, 8)
+                         for _ in range(4))
+    kw = dict(tw_dif=tw_inv if has_dif else None, tw_dit=tw_fwd if has_dit else None,
+              pre=pre if has_pre else None, mid=mid if has_mid else None,
+              post=post if has_post else None, post_op=post_op)
+    got = fk.ntt_rows(x, **kw)
+    got_ints = _ints(got.reshape(-1, 8))
+    assert all(v < 2 * R_SCALAR for v in got_ints)
+    rinv = pow(MONT, -1, R_SCALAR)
+    got_vals = [v * rinv % R_SCALAR for v in got_ints]
+
+    def vals(t):  # a (rows, L, 8) operand as field values per row
+        return [[v * rinv % R_SCALAR for v in _ints(t[i])] for i in range(rows)]
+
+    want = []
+    for i in range(rows):
+        want += _row_reference(_ints(x[i]), vals(pre)[i] if has_pre else None,
+                               vals(mid)[i] if has_mid else None, vals(post)[i] if has_post else None,
+                               post_op, w_inv if has_dif else None, root if has_dit else None)
+    assert got_vals == want
+    if L in (2, 4) and (not has_mid or mode == "mid"):
+        def stack(tbl):
+            return jntt._low_tw_stack(_to_jax(tbl).T, L, log, L)
+
+        lm = {k: _to_jax(v.reshape(-1, 8)).T for k, v in dict(x=x, pre=pre, mid=mid, post=post).items()}
+        if has_mid:
+            jax_out = fp.ntt_mid_stages_lm(lm["x"], stack(tw_inv), stack(tw_fwd), lm["mid"], log, log, L)
+        else:
+            jax_out = fp.ntt_low_stages_lm(lm["x"], stack(tw_inv if has_dif else tw_fwd), log, has_dif, L,
+                                           pre_lm=lm["pre"] if has_pre else None,
+                                           post_lm=lm["post"] if has_post else None, post_op=post_op)
+        assert _canon(got_ints, R_SCALAR) == _canon(_ints(_from_jax(np.asarray(jax_out).T)), R_SCALAR)
