@@ -7,8 +7,8 @@ Phases (each passes or raises; nothing is caught):
   1. card: builds the CUDA kernels from csrc/ (nvcc, sm_90a), prints each
      kernel's registers and spill bytes (ptxas; the K3/K4, K6/K7 and K8
      entry kernels by their C names, K3/K4's with each row length's block
-     shape, shared memory and resident warps) and the card's name and power
-     limit;
+     shape, shared memory and resident warps, K2's batch and persistent
+     grid) and the card's name and power limit;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the 2^20-domain prove gives it, word for word (max_abs_err 0);
      K6/K7 at 2^20 pairs and at the path's largest general add (Phase C
@@ -16,7 +16,11 @@ Phases (each passes or raises; nothing is caught):
   3. each kernel's time (CUDA events, warmed up, averaged), its bound and
      the plain version's time; K3/K4's bounds count the butterflies whose
      twiddle is not one, and their rows are also checked and timed at the
-     2^13 flat chain's shape (16 rows of 512: DIF, DIT + pre);
+     2^13 flat chain's shape (16 rows of 512: DIF, DIT + pre); K5's fused
+     stages at the flat chain's shapes (all high stages of a 2^10 to 2^13
+     transform, DIF and DIT) and as one stage at 2^20, with the profiler's
+     device time beside the event time (at 2^13 an event time per call is
+     mostly the host's); K2 also at a ragged T;
   4. the main path: a 2^20-domain squaring-chain proof through
      DeviceProvingKey.from_matrix_rows and prove_prepared, against a
      synthetic key whose every point has a known discrete log, so the host
@@ -29,16 +33,17 @@ Phases (each passes or raises; nothing is caught):
   6. the small-circuit path at a 2^13 domain: setup on the card
      (generate_parameters_from_matrices, self-check included) -> write_zkey
      -> read_zkey -> DeviceProvingKey.build -> prove_prepared, which must go
-     through the flat NTT chain (fr_butterfly_stage launched, no ntt_rows
-     mid launch); h against the plain witness map, the proof verified by
-     pairing and a wrong public input refused; the steady-state prove and
-     the flat chain timed beside the four-step chain at the same size;
+     through the flat NTT chain (one fused fr_butterfly_stages launch a
+     transform, six in all, no ntt_rows mid launch); h against the plain
+     witness map, the proof verified by pairing and a wrong public input
+     refused; the steady-state prove and the flat chain timed beside the
+     four-step chain at the same size, each with its launches counted;
      one prove under torch.profiler as in phase 4;
   7. setup on the card at 2^20 for phase 4's circuit, by stage, with its
      peak device memory; the 2^20 proof made with that key verified by
      pairing;
   8. the K9 microbenchmark (ops/field_bench.run): G ops/s of each Fq op.
-Phases 2-3 also hold the flat chain's stage kernel (2^13 and 2^20), the Fq
+Phases 2-3 also hold the flat chain's stage kernel (2^10 to 2^13 and 2^20), the Fq
 binary modes (2^20) and the K9 op chain (2^16 elements, K = 64) against
 their plain versions. Each kernel's launches are counted on the path that
 runs it (phase 4, 6 or 7, or 8 for K9), the counts set to 0 just before.
@@ -98,6 +103,24 @@ def once_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def device_ms(fn, reps, match):
+    """Mean device time per call of fn() over reps calls under
+    torch.profiler, summed over the device kernels whose names hold
+    `match`; None when the profiler recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+    return sum(spans) / 1e3 / reps if spans else None
 
 
 def max_abs_err(a, b, chunk=1 << 26):
@@ -304,6 +327,7 @@ def main() -> int:
           "dynamic shared B, warps an SM): " + json.dumps(
               {log: [r["registers"], r["spill_bytes"], r["threads"], r["rows_per_block"], r["smem_bytes"],
                      r["warps_per_sm"]] for log, r in ntt_res.items()}))
+    print(f"    K2 fr_tile_scan (tiles of 16): {json.dumps(fk.tile_scan_launch_shape(dev))}")
     print("    K6/K7 entry kernels (registers, spill stores + loads B): " + json.dumps(
         {f"{g}_{m}": [row["registers"], row["spill_stores"] + row["spill_loads"]]
          for g, modes in add_res.items() for m, row in modes.items()}))
@@ -335,9 +359,11 @@ def main() -> int:
         x[:4] = torch.tensor(lc.ints_to_words([0, 1, p - 1, 2 * p - 1]), device=dev)
         return x
 
-    def check(name, kernel_fn, plain_fn, reps, nbytes, mads, replaces, source, note=""):
+    def check(name, kernel_fn, plain_fn, reps, nbytes, mads, replaces, source, note="", device=None):
         """Kernel vs plain on the same inputs (word for word), then the
-        kernel's time; the first check of a name makes its kernels row."""
+        kernel's time (and, given `device`, a substring of its kernel's
+        name, its profiler device time); the first check of a name makes
+        its kernels row."""
         torch.cuda.synchronize()
         got = kernel_fn()
         want, plain_ms = once_ms(plain_fn)
@@ -348,17 +374,23 @@ def main() -> int:
             raise AssertionError(f"{name}: kernel and plain version differ")
         del got, want, got_t, want_t
         _, ms = timed(kernel_fn, reps)
+        dev_ms = device_ms(kernel_fn, reps, device) if device else None
         b_ms, b_by = bound(nbytes, mads)
+        shown = "" if device is None else (
+            f", device {dev_ms:.4f} ms (profiler)" if dev_ms is not None else ", device not measured")
         print(f"[2] {name}{note}: equal to plain (max_abs_err 0, tolerance 0: integer "
-              f"arithmetic); [3] {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"arithmetic); [3] {ms:.4f} ms{shown}, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
         results.setdefault(name, dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=0,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None))
-        if name.startswith("ntt_rows"):  # every mode's numbers on the kernels line
+        if device:
+            results[name].setdefault("device_ms", dev_ms)
+        if name.startswith("ntt_rows") or name in ("fr_butterfly_stage", "fr_tile_scan"):
+            # every mode's numbers on the kernels line
             results[name].setdefault("modes", {})[note.strip()] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, max_abs_err=err)
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, max_abs_err=err)
 
     FP = "circom_compat_tpu/ops/field_pallas.py"
     CP = "circom_compat_tpu/ops/curve_pallas.py"
@@ -377,7 +409,11 @@ def main() -> int:
     vt = a.reshape(T, 16, 8)
     ft = torch.rand(T, 16, device=dev, generator=gen) < 0.9  # sparse rows: most start a row
     check("fr_tile_scan", lambda: fk.fr_tile_scan(vt, ft), lambda: fk.fr_tile_scan_plain(vt, ft),
-          20, 65 * n + 32 * T, 0, f"{FP}:228", FSRC)
+          20, 65 * n + 32 * T, 0, f"{FP}:228", FSRC, f" T={T}, K=16, flags 0.9", "fr_tile_scan_kernel")
+    Tr = T - 37  # a ragged last batch
+    vr, fr_ = vt[:Tr], ft[:Tr]
+    check("fr_tile_scan", lambda: fk.fr_tile_scan(vr, fr_), lambda: fk.fr_tile_scan_plain(vr, fr_),
+          20, (65 * 16 + 32) * Tr, 0, f"{FP}:228", FSRC, f" T={Tr} (ragged), K=16, flags 0.9")
 
     def row_muls(rows, L):
         """Butterfly multiplies of one stage sweep over rows of L: the
@@ -413,23 +449,38 @@ def main() -> int:
     check("ntt_rows_low", lambda: fk.ntt_rows(xf, tw_dit=low["low_fwd"], pre=pf),
           lambda: fk.ntt_rows_plain(xf, tw_dit=low["low_fwd"], pre=pf),
           200, 96 * small, MAD * (fstages + small), f"{FP}:387", FSRC, f" flat DIT + pre, 2^{LOG_SMALL}")
-    del a, b, vt, ft, x3, pre, post, x4
+    del a, b, vt, ft, vr, fr_, x3, pre, post, x4
 
-    # K5a/K5b: one stage of the flat chain, at the 2^13 path's shape (a
-    # transform's first DIF and last DIT stage: 4096 butterflies) and at
-    # 2^20 for a rate; 160 B and one multiply per butterfly
-    for log_m in (LOG_SMALL, LOG_N):
+    # K5a/K5b: the flat chain's high stages in one launch, at the 2^13 path's
+    # shape first (half 4096 -> 512 DIF, 512 -> 4096 DIT: R = 16), then at the
+    # smaller flat sizes (R = 8, 4, 2), and one stage at 2^20 for a rate; 64 B
+    # an element, one multiply a butterfly a stage
+    K5 = f"{FP}:276 (K5a), {FP}:169 (K5b, the DIT mode)"
+    for log_m in (LOG_SMALL, 12, 11, 10):
         m = 1 << log_m
-        ftb = ntt.get_plan(m).tables(dev, "flat")
+        # a plan of its own: get_plan's cache would evict the 2^20 plan, and
+        # phase 4 would stage a second copy of its tables
+        ftb = ntt.NTTPlan(m).tables(dev, "flat")
         xs = lazy_fr(m)
+        stages = log_m - (ntt.LOW_BLOCK.bit_length() - 1)
         for dif in (True, False):
             tw = ftb["tw_inv" if dif else "tw_fwd"]
-            check("fr_butterfly_stage", lambda: fk.fr_butterfly_stage(xs, tw, m // 2, dif),
-                  lambda: fk.fr_butterfly_stage_plain(xs, tw, m // 2, dif),
-                  50, 160 * m // 2, MAD * m // 2,
-                  f"{FP}:276 (K5a), {FP}:169 (K5b, the DIT mode)", FSRC,
-                  f" {'DIF' if dif else 'DIT'} n=2^{log_m}, half {m // 2}")
+            check("fr_butterfly_stage", lambda: fk.fr_butterfly_stages(xs, tw, ntt.LOW_BLOCK, m // 2, dif),
+                  lambda: fk.fr_butterfly_stages_plain(xs, tw, ntt.LOW_BLOCK, m // 2, dif),
+                  200, 64 * m, MAD * m // 2 * stages, K5, FSRC,
+                  f" {'DIF' if dif else 'DIT'} n=2^{log_m}, half {ntt.LOW_BLOCK}..{m // 2} "
+                  f"(R = {2 ** stages}, fused)", "butterfly_stages_kernel")
         del xs
+    m = 1 << LOG_N
+    ftb = ntt.get_plan(m).tables(dev, "flat")
+    xs = lazy_fr(m)
+    for dif in (True, False):
+        tw = ftb["tw_inv" if dif else "tw_fwd"]
+        check("fr_butterfly_stage", lambda: fk.fr_butterfly_stage(xs, tw, m // 2, dif),
+              lambda: fk.fr_butterfly_stage_plain(xs, tw, m // 2, dif),
+              50, 160 * m // 2, MAD * m // 2, K5, FSRC,
+              f" {'DIF' if dif else 'DIT'} n=2^{LOG_N}, half {m // 2} (one stage)", "butterfly_stages_kernel")
+    del xs
 
     # K1's Fq mode (the setup's affine conversion and on-curve check)
     a, b = lazy_fr(n, Q), lazy_fr(n, Q)
@@ -654,6 +705,8 @@ def main() -> int:
     if launches6["ntt_rows_mid"] != 0:
         raise AssertionError("the 2^13 prove ran the four-step chain")
     take_launches(launches6, ["fr_butterfly_stage"], "the 2^13 prove")
+    if launches6["fr_butterfly_stage"] != 6:  # one fused launch a transform
+        raise AssertionError(f"the 2^13 prove made {launches6['fr_butterfly_stage']} stage launches, not 6")
     asg6_mont = fk.fr_to_mont(torch.from_numpy(gd.encode_assignment(asg6)).to(dev))
     h6 = fk.fr_from_mont(gd.witness_map(dpk6, asg6_mont))
     h6_plain = fk.fr_binary_plain("mul_canon", gd.witness_map(dpk6, asg6_mont, ops=fk.PLAIN),
@@ -680,13 +733,26 @@ def main() -> int:
     profile_prove(lambda: gd.prove_prepared(dpk6, r6, s6, asg6), 6, f"2^{LOG_SMALL}")
     plan6 = ntt.get_plan(1 << LOG_SMALL)
     a6, b6 = lazy_fr(plan6.n), lazy_fr(plan6.n)
-    flat_h, flat_ms = timed(lambda: ntt.witness_map_flat(plan6, a6, b6), 20)
-    four_h, four_ms = timed(lambda: ntt.witness_map_four_step(plan6, a6, b6), 20)
+
+    def chain_launches(fn):
+        """The port's kernel launches of one fn() call."""
+        reset_all()
+        fn()
+        torch.cuda.synchronize()
+        return {k2: v for k2, v in counts().items() if v}
+
+    flat_fn = lambda: ntt.witness_map_flat(plan6, a6, b6)  # noqa: E731
+    four_fn = lambda: ntt.witness_map_four_step(plan6, a6, b6)  # noqa: E731
+    flat_n, four_n = chain_launches(flat_fn), chain_launches(four_fn)
+    if flat_n.get("fr_butterfly_stage", 0) > 6:  # six transforms, one fused launch each
+        raise AssertionError(f"the flat chain ran fr_butterfly_stage more than once a transform: {flat_n}")
+    flat_h, flat_ms = timed(flat_fn, 20)
+    four_h, four_ms = timed(four_fn, 20)
     if max_abs_err(fk.fr_from_mont(flat_h), fk.fr_from_mont(four_h)) != 0:
         raise AssertionError("flat and four-step chains differ at 2^13")
     print(f"[6] witness-map transforms at 2^{LOG_SMALL}: flat chain {flat_ms:.4f} ms "
-          f"(33 launches), four-step chain {four_ms:.4f} ms (9 row launches + transposes); "
-          "equal results")
+          f"({sum(flat_n.values())} launches: {json.dumps(flat_n)}), four-step chain {four_ms:.4f} ms "
+          f"({sum(four_n.values())} kernel launches: {json.dumps(four_n)}, + transposes); equal results")
     del dpk6, a6, b6, flat_h, four_h
     torch.cuda.empty_cache()
 

@@ -35,9 +35,10 @@ SIGNATURES = {
     "field_kernels": {
         "ccf_fr_binary": [_P, _P, _P, _L, _I, _I, _I, _P],
         "ccf_fr_tile_scan": [_P, _P, _P, _P, _L, _I, _P],
+        "ccf_fr_tile_scan_info": [_P],
         "ccf_ntt_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
         "ccf_ntt_rows_info": [_I, _P],
-        "ccf_fr_butterfly_stage": [_P, _P, _P, _L, _I, _I, _P],
+        "ccf_fr_butterfly_stages": [_P, _P, _P, _L, _I, _I, _I, _P],
         "ccf_fq_op_chain": [_P, _P, _P, _L, _I, _I, _P],
     },
     "curve_kernels": {

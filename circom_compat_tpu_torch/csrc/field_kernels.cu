@@ -1,5 +1,5 @@
 // Field kernels: K1 fr_binary (Fr and Fq), K2 fr_tile_scan, K3/K4 ntt_rows,
-// K5a/K5b fr_butterfly_stage, K9 fq_op_chain.
+// K5a/K5b fr_butterfly_stages, K9 fq_op_chain.
 //
 // Plain C entry points (ctypes, no torch headers). Each launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError().
@@ -35,41 +35,6 @@ __global__ void binary_kernel(const uint32_t* __restrict__ a, const uint32_t* __
   store(o + 8 * i, r);
 }
 
-// ---- K5a/K5b: one radix-2 stage over the whole vector ----------------------
-// Replaces field_pallas._butterfly_lm_blocked (field_pallas.py:272, K5a: DIT
-// or DIF over limb-major halves) and _butterfly_blocked (:165, K5b: the
-// row-major DIT butterfly). Butterfly j pairs i0 = (j / half) * 2 half +
-// j % half with i1 = i0 + half and takes the twiddle table[(j % half) *
-// tw_stride] of the n-th root table, so the JAX package's stage slices,
-// merge copies and broadcast twiddle array become this kernel's indexing.
-// DIT: (u + w v, u - w v); DIF: (u + v, (u - v) w). Lazy [0, 2p) in and out.
-// Bound: bytes, 160 B per butterfly (u, v, w read, two outputs written)
-// against one Montgomery multiply (264 multiply-adds). Design: one thread
-// per butterfly, 16-byte loads; a stage's halves are 32 * half bytes
-// apart, so neighbouring threads read neighbouring rows of each half.
-template <bool DIF>
-__global__ void butterfly_stage_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ tw,
-                                       uint32_t* __restrict__ out, long long pairs, int log_half,
-                                       long long tw_stride) {
-  const long long j = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (j >= pairs) return;
-  const long long half = 1LL << log_half;
-  const long long pos = j & (half - 1);
-  const long long i0 = ((j >> log_half) << (log_half + 1)) + pos;
-  const long long i1 = i0 + half;
-  const Fe u = load(x + 8 * i0);
-  const Fe v = load(x + 8 * i1);
-  const Fe w = load(tw + 8 * (pos * tw_stride));
-  if (DIF) {
-    store(out + 8 * i0, add<Fr>(u, v));
-    store(out + 8 * i1, mul_lazy<Fr>(w, sub<Fr>(u, v)));
-  } else {
-    const Fe t = mul_lazy<Fr>(w, v);
-    store(out + 8 * i0, add<Fr>(u, t));
-    store(out + 8 * i1, sub<Fr>(u, t));
-  }
-}
-
 // ---- K9: a K-step dependent chain of one Fq op per element -----------------
 // Replaces scripts/bench_field_ops.py run_op (:76, the pallas_call at :79):
 // acc = op(acc, b) K times, acc starting at a. Ops (bench_field_ops.py:45-65):
@@ -100,26 +65,6 @@ __global__ void fq_op_chain_kernel(const uint32_t* __restrict__ a, const uint32_
     }
   }
   store(o + 8 * i, acc);
-}
-
-// ---- K2: within-tile segmented inclusive scan, lazy Fr add -----------------
-// Replaces field_pallas._tile_scan_blocked (field_pallas.py:219). Bound:
-// bytes (one add per 64 B moved). Design: one thread per tile runs the K
-// sequential steps in registers; the carry across tiles stays the
-// recursion of ops/segments.py, since no grid state carries across blocks.
-__global__ void fr_tile_scan_kernel(const uint32_t* __restrict__ v, const uint8_t* __restrict__ flags,
-                                    uint32_t* __restrict__ out, uint32_t* __restrict__ carry,
-                                    long long T, int K) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  Fe acc = zero();
-  for (int k = 0; k < K; ++k) {
-    const long long idx = t * K + k;
-    const Fe x = load(v + 8 * idx);
-    acc = flags[idx] ? x : add<Fr>(acc, x);
-    store(out + 8 * idx, acc);
-  }
-  store(carry + 8 * t, acc);
 }
 
 // ---- K3/K4: all radix-2 stages of one row, one butterfly pair a thread -----
@@ -383,6 +328,210 @@ __device__ __forceinline__ void ntt_rows_body(const uint32_t* __restrict__ x, ui
   }
 }
 
+// ---- K5a/K5b: every radix-2 stage with half in [h_lo, h_hi], one launch ----
+// Replaces field_pallas._butterfly_lm_blocked (field_pallas.py:272, K5a: DIT
+// or DIF over limb-major halves) and _butterfly_blocked (:165, K5b: the
+// row-major DIT butterfly), one pallas_call a stage there, with XLA slicing
+// and merging the halves between calls. Butterfly of stage `half`: i0 with
+// (i0 / half) even and i1 = i0 + half take the twiddle table[(i0 mod half)
+// * (n/2/half)] of the n-th root table; DIT (u + w v, u - w v), DIF (u + v,
+// (u - v) w); lazy [0, 2p) in and out; DIF runs the stages descending, DIT
+// ascending.
+//
+// View x as (g, r, c) with c < h_lo and r < R = 2 h_hi / h_lo: every stage
+// of the range pairs two rows of one column (g, c), so each column is an
+// independent R-point sub-transform and no block needs another's results.
+//
+// Bound: at the flat chain's 2^13 shape (R = 16, h_lo = 512) launches and
+// latency: 64 B of traffic and log2 R dependent Montgomery multiplies an
+// element (0.0003 ms by operations). At R = 2 (one stage) bytes: 160 B a
+// butterfly against one multiply.
+//
+// Design. A block takes C = 2 kBflyThreads / R consecutive columns (C = 4 at
+// R = 16: 128 blocks at 2^13, not 16 on 132 SMs); thread (b, cc) runs
+// butterfly b of column cc at every stage. It loads its first stage's two
+// rows from device memory (16-byte loads, neighbouring threads on
+// neighbouring columns, so each row's slice is one contiguous run), passes
+// its pair through shared memory between stages (two planes of 16-byte
+// halves, double-buffered: one barrier a stage) and stores its last stage's
+// pair. Every multiply is kept, also those by w^0, so the words equal the
+// stage-by-stage composition (fr_butterfly_stages_plain). Twiddles through
+// L1 (__ldg).
+constexpr int kBflyThreads = 32;  // threads a block: C = 2 kBflyThreads / R columns
+constexpr int kBflyMaxLogR = 4;   // R <= 16: every high stage of the flat chain (n < 2^14)
+
+__device__ __forceinline__ Fe load_ldg(const uint32_t* p) {
+  const uint4 lo = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint4 hi = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+  return Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+}
+
+// the first row of butterfly b in a stage whose rows pair at distance 2^s
+__device__ __forceinline__ int bfly_row(int b, int s) { return ((b >> s) << (s + 1)) | (b & ((1 << s) - 1)); }
+
+template <bool DIF, int LOG_R>
+__global__ void __launch_bounds__(kBflyThreads)
+    butterfly_stages_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ tw,
+                            uint32_t* __restrict__ out, long long n, int log_lo) {
+  constexpr int R = 1 << LOG_R;
+  constexpr int C = 2 * kBflyThreads / R;
+  constexpr int PLANE = R * C;  // 16-byte chunks a plane
+  constexpr int BUFS = LOG_R > 2 ? 2 : LOG_R - 1;  // LOG_R - 1 exchanges
+  __shared__ uint4 smem[BUFS > 0 ? BUFS * 2 * PLANE : 1];
+  const int cc = threadIdx.x % C, b = threadIdx.x / C;
+  const long long col = (long long)blockIdx.x * C + cc;
+  const bool live = col < (n >> LOG_R);  // guards memory only: every thread reaches every barrier
+  const long long h_lo = 1LL << log_lo;
+  const long long c = col & (h_lo - 1);
+  const long long base = ((col >> log_lo) << (log_lo + LOG_R)) | c;
+  const long long tw_unit = (n >> 1) >> log_lo;  // n/2/half at half = h_lo
+  int s = DIF ? LOG_R - 1 : 0;
+  int r0 = bfly_row(b, s);
+  Fe u = live ? load(x + 8 * (base + r0 * h_lo)) : zero();
+  Fe v = live ? load(x + 8 * (base + (r0 + (1 << s)) * h_lo)) : zero();
+#pragma unroll
+  for (int step = 0; step < LOG_R; ++step) {
+    if (step > 0) {
+      uint4* buf = smem + (BUFS == 2 ? (step - 1) & 1 : 0) * 2 * PLANE;
+      ntt_put(buf, PLANE, r0 * C + cc, u);
+      ntt_put(buf, PLANE, (r0 + (1 << s)) * C + cc, v);
+      __syncthreads();
+      s = DIF ? LOG_R - 1 - step : step;
+      r0 = bfly_row(b, s);
+      u = ntt_get(buf, PLANE, r0 * C + cc);
+      v = ntt_get(buf, PLANE, (r0 + (1 << s)) * C + cc);
+    }
+    const long long pos = ((long long)(r0 & ((1 << s) - 1)) << log_lo) | c;
+    const Fe w = load_ldg(tw + 8 * (pos * (tw_unit >> s)));
+    if (DIF) {
+      const Fe d = sub<Fr>(u, v);
+      u = add<Fr>(u, v);
+      v = mul_lazy<Fr>(w, d);
+    } else {
+      const Fe t = mul_lazy<Fr>(w, v);
+      v = sub<Fr>(u, t);
+      u = add<Fr>(u, t);
+    }
+  }
+  if (live) {
+    store(out + 8 * (base + r0 * h_lo), u);
+    store(out + 8 * (base + (r0 + (1 << s)) * h_lo), v);
+  }
+}
+
+// ---- K2: within-tile segmented inclusive scan, lazy Fr add -----------------
+// Replaces field_pallas._tile_scan_blocked (field_pallas.py:219):
+// out[t, k] = ft[t, k] ? vt[t, k] : out[t, k - 1] + vt[t, k] (the sum
+// starting at zero), carry[t] = out[t, K - 1]. The carry across tiles stays
+// the recursion of ops/segments.py, since no grid state carries across
+// blocks.
+//
+// Bound: bytes, 65 B an element (value in, sum out, flag) and 32 B a tile
+// (carry) against one lazy add an element: nothing to hide a strided access
+// behind. A thread per tile reading its own 512 B (the first design) put
+// each warp access on 32 sectors.
+//
+// Design. A block takes batches of kScanTiles contiguous tiles of 16 (16
+// KB). It brings a batch into shared memory with 16-byte cp.async,
+// neighbouring threads on neighbouring chunks, at a swizzled slot
+// (ntt_swizzle: without it a quarter-warp's tile-strided reads below would
+// fall on the same four banks); thread j then scans tile j in the plain
+// version's order of adds (so the lazy words are the plain version's), its
+// 16 flags one 16-byte load, writes the running sums back into the same
+// slots and its carry out, and the block stores the batch coalesced.
+// kScanBufs buffers: the next batch's loads are in flight while one is
+// scanned. The grid is persistent (every block resident, six an SM: 96 KB
+// of loads in flight), the blocks taking batches round robin.
+// CUDA and not Triton: the same swizzled staging as K3/K4, in the same file
+// and build; Triton would serve a streaming scan too, but would add a
+// second toolchain to the build for one kernel.
+constexpr int kScanK = 16;      // a tile's elements (ops/segments.py TILE)
+constexpr int kScanTiles = 32;  // tiles a batch, one thread each
+constexpr int kScanBufs = 2;    // batches in shared memory a block
+constexpr int kScanSmem = kScanBufs * kScanTiles * kScanK * (int)sizeof(Fe);
+
+__device__ __forceinline__ void cp_async16(uint4* smem, const uint4* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+__global__ void __launch_bounds__(kScanTiles)
+    fr_tile_scan_kernel(const uint32_t* __restrict__ v, const uint8_t* __restrict__ flags,
+                        uint32_t* __restrict__ out, uint32_t* __restrict__ carry, long long T) {
+  extern __shared__ uint4 smem[];
+  constexpr int tile_chunks = 2 * kScanK;
+  constexpr int batch_chunks = kScanTiles * tile_chunks;
+  const uint4* src = reinterpret_cast<const uint4*>(v);
+  uint4* dst = reinterpret_cast<uint4*>(out);
+  // batch i of this block starts at tile first + i * stride (round robin)
+  const long long first = (long long)blockIdx.x * kScanTiles;
+  const long long stride = (long long)gridDim.x * kScanTiles;
+
+  // one commit group a batch, empty past the end
+  auto fetch = [&](long long i, int slot) {
+    const long long t0 = first + i * stride;
+    if (t0 < T) {
+      const int count = (int)min((long long)kScanTiles, T - t0) * tile_chunks;
+      uint4* buf = smem + slot * batch_chunks;
+      const uint4* g = src + t0 * tile_chunks;
+      for (int c = threadIdx.x; c < count; c += kScanTiles) cp_async16(buf + ntt_swizzle(c), g + c);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int k = 0; k < kScanBufs - 1; ++k) fetch(k, k);
+  int slot = 0;
+  for (long long i = 0; first + i * stride < T; ++i) {
+    fetch(i + kScanBufs - 1, (slot + kScanBufs - 1) % kScanBufs);
+    cp_async_wait<kScanBufs - 1>();  // this thread's chunks of batch i have landed
+    __syncthreads();                 // ... and every other thread's
+    uint4* buf = smem + slot * batch_chunks;
+    const long long t0 = first + i * stride;
+    const int tiles = (int)min((long long)kScanTiles, T - t0);
+    const int j = threadIdx.x;
+    if (j < tiles) {
+      const long long t = t0 + j;
+      const uint4 f = __ldg(reinterpret_cast<const uint4*>(flags + kScanK * t));
+      const uint32_t fw[4] = {f.x, f.y, f.z, f.w};
+      Fe acc = zero();
+#pragma unroll
+      for (int k = 0; k < kScanK; ++k) {
+        const bool flag = ((fw[k >> 2] >> (8 * (k & 3))) & 0xffu) != 0u;
+        const int c = j * tile_chunks + 2 * k;
+        uint4* lo = buf + ntt_swizzle(c);
+        uint4* hi = buf + ntt_swizzle(c + 1);
+        const uint4 a = *lo, h = *hi;
+        const Fe x = Fe{{a.x, a.y, a.z, a.w, h.x, h.y, h.z, h.w}};
+        acc = flag ? x : add<Fr>(acc, x);
+        *lo = make_uint4(acc.w[0], acc.w[1], acc.w[2], acc.w[3]);
+        *hi = make_uint4(acc.w[4], acc.w[5], acc.w[6], acc.w[7]);
+      }
+      store(carry + 8 * t, acc);
+    }
+    __syncthreads();
+    const int count = tiles * tile_chunks;
+    uint4* g = dst + t0 * tile_chunks;
+    for (int c = threadIdx.x; c < count; c += kScanTiles) g[c] = buf[ntt_swizzle(c)];
+    __syncthreads();  // the buffer is refilled kScanBufs - 1 batches on
+    slot = (slot + 1) % kScanBufs;
+  }
+}
+
+// resident blocks an SM
+int tile_scan_occupancy(int* blocks_per_sm) {
+  const int rc = (int)cudaFuncSetAttribute((const void*)fr_tile_scan_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kScanSmem);
+  if (rc != 0) return rc;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fr_tile_scan_kernel, kScanTiles,
+                                                            kScanSmem);
+}
+
 inline unsigned blocks_for(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
 
 }  // namespace
@@ -401,17 +550,23 @@ int ccf_fr_binary(const void* a, const void* b, void* out, long long n, int op, 
   return (int)cudaGetLastError();
 }
 
-// x, out (n, 8) words; tw the (n/2, 8) table of the n-th root; half = 2^log_half
-int ccf_fr_butterfly_stage(const void* x, const void* tw, void* out, long long n, int log_half, int dif,
-                           void* stream) {
-  const long long pairs = n / 2;
-  if (pairs > 0) {
-    const int threads = 256;
-    const long long tw_stride = pairs >> log_half;
-    auto kernel = dif ? butterfly_stage_kernel<true> : butterfly_stage_kernel<false>;
-    kernel<<<blocks_for(pairs, threads), threads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (const uint32_t*)tw, (uint32_t*)out, pairs, log_half, tw_stride);
-  }
+// x, out (n, 8) words; tw the (n/2, 8) table of the n-th root; the stages
+// with half in [2^log_lo, 2^(log_lo + log_r - 1)], R = 2^log_r <= 16 rows a
+// column: DIF descending, DIT ascending
+int ccf_fr_butterfly_stages(const void* x, const void* tw, void* out, long long n, int log_lo, int log_r,
+                            int dif, void* stream) {
+  typedef void (*Kernel)(const uint32_t*, const uint32_t*, uint32_t*, long long, int);
+  static const Kernel kernels[2][kBflyMaxLogR] = {
+      {butterfly_stages_kernel<false, 1>, butterfly_stages_kernel<false, 2>, butterfly_stages_kernel<false, 3>,
+       butterfly_stages_kernel<false, 4>},
+      {butterfly_stages_kernel<true, 1>, butterfly_stages_kernel<true, 2>, butterfly_stages_kernel<true, 3>,
+       butterfly_stages_kernel<true, 4>}};
+  if (log_r < 1 || log_r > kBflyMaxLogR || log_lo < 0 || (n >> (log_lo + log_r)) < 1)
+    return (int)cudaErrorInvalidValue;
+  const int cols_a_block = 2 * kBflyThreads >> log_r;
+  kernels[dif ? 1 : 0][log_r - 1]<<<blocks_for(n >> log_r, cols_a_block), kBflyThreads, 0,
+                                    (cudaStream_t)stream>>>((const uint32_t*)x, (const uint32_t*)tw,
+                                                            (uint32_t*)out, n, log_lo);
   return (int)cudaGetLastError();
 }
 
@@ -428,14 +583,33 @@ int ccf_fq_op_chain(const void* a, const void* b, void* out, long long n, int op
   return (int)cudaGetLastError();
 }
 
+// v, out (T, K, 8) words, flags (T, K) bytes (16-byte aligned), carry (T, 8);
+// K must be 16
 int ccf_fr_tile_scan(const void* v, const void* flags, void* out, void* carry, long long T, int K,
                      void* stream) {
+  if (K != kScanK) return (int)cudaErrorInvalidValue;
   if (T > 0) {
-    const int threads = 128;
-    fr_tile_scan_kernel<<<blocks_for(T, threads), threads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)v, (const uint8_t*)flags, (uint32_t*)out, (uint32_t*)carry, T, K);
+    int per_sm = 0, device = 0, sms = 0;
+    int rc = tile_scan_occupancy(&per_sm);
+    if (rc == 0) rc = (int)cudaGetDevice(&device);
+    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (rc != 0) return rc;
+    const long long batches = (T + kScanTiles - 1) / kScanTiles;
+    const long long resident = (long long)sms * per_sm;
+    const unsigned grid = (unsigned)(batches < resident ? batches : resident);  // persistent
+    fr_tile_scan_kernel<<<grid, kScanTiles, kScanSmem, (cudaStream_t)stream>>>(
+        (const uint32_t*)v, (const uint8_t*)flags, (uint32_t*)out, (uint32_t*)carry, T);
   }
   return (int)cudaGetLastError();
+}
+
+// info[0..3] of the launch: tiles a batch, batches in shared memory a
+// block, dynamic shared memory bytes, resident blocks an SM
+int ccf_fr_tile_scan_info(int* info) {
+  info[0] = kScanTiles;
+  info[1] = kScanBufs;
+  info[2] = kScanSmem;
+  return tile_scan_occupancy(&info[3]);
 }
 
 // One entry kernel a row length 2^LOG (the K3/K4 ptxas rows by name).

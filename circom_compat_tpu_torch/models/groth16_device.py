@@ -209,10 +209,19 @@ def assemble_proof(dpk: DeviceProvingKey, r: int, s: int, g1_sums, g2_sums,
 
 
 def encode_assignment(full_assignment) -> np.ndarray:
-    """Assignment -> (N, 8) int32 canonical words; an (N, 8) integer array
-    is taken as words already."""
+    """Assignment -> (N, 8) int32 canonical words. Takes Python ints, a
+    prepared (N, 16) array of 16-bit limbs (the JAX package's layout, from
+    read_wtns_limbs or calculate_witness_limbs) or (N, 8) int32 words."""
     if isinstance(full_assignment, np.ndarray) and full_assignment.ndim == 2:
-        return np.ascontiguousarray(full_assignment).astype(np.int32)
+        arr = full_assignment
+        if arr.shape[1] == limb_codec.NUM_LIMBS:
+            if arr.size and (arr.min() < 0 or arr.max() > limb_codec.LIMB_MASK):
+                raise ValueError("a prepared assignment's (N, 16) limbs must each be < 2^16")
+            return limb_codec.words_view(arr)
+        if arr.shape[1] == limb_codec.WORDS:
+            return np.ascontiguousarray(arr).astype(np.int32)
+        raise ValueError(f"a prepared assignment is (N, 16) 16-bit limbs or (N, 8) int32 words, "
+                         f"not shape {arr.shape}")
     return fl.encode_plain(full_assignment)
 
 

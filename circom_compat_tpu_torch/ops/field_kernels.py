@@ -12,13 +12,16 @@ with their plain PyTorch versions.
                            a butterfly whose twiddle index is 0 (w^0 = one)
                            skips its multiply, in the kernel and the plain
                            version alike
-  fr_butterfly_stage  K5a  one radix-2 stage (DIT or DIF) over the whole
-                      K5b  vector: the flat NTT chain's high stages
+  fr_butterfly_stages K5a  every radix-2 stage with half in [half_lo,
+                      K5b  half_hi] (DIT or DIF) over the whole vector in
+                           one launch: the flat NTT chain's high stages;
+                           fr_butterfly_stage is its one-stage case
 
 Tensors are (..., 8) int32 words (ops/field.py). A wrapper given CPU
 tensors runs the plain version; given CUDA tensors it launches the kernel
 or raises. Each launch adds one to LAUNCHES[name] (fr_binary over Fq counts
-as "f_binary_fq").
+as "f_binary_fq"; fr_butterfly_stages and fr_butterfly_stage count as
+"fr_butterfly_stage").
 """
 
 from __future__ import annotations
@@ -128,6 +131,9 @@ def fr_tile_scan_plain(vt: torch.Tensor, ft: torch.Tensor):
     return out, fl.limbs_to_words(acc)
 
 
+FR_TILE_SCAN_K = 16  # the kernel's tile length: segments.TILE
+
+
 def fr_tile_scan(vt: torch.Tensor, ft: torch.Tensor):
     """vt (T, K, 8), ft (T, K) bool -> (out (T, K, 8), carry (T, 8)):
     out[t, k] = ft[t, k] ? vt[t, k] : out[t, k-1] + vt[t, k]."""
@@ -137,7 +143,11 @@ def fr_tile_scan(vt: torch.Tensor, ft: torch.Tensor):
     if _build.runs_plain(vt):
         return fr_tile_scan_plain(vt, ft)
     T, K = ft.shape
+    if K != FR_TILE_SCAN_K:
+        raise ValueError(f"the fr_tile_scan kernel scans tiles of {FR_TILE_SCAN_K}, not {K}")
     ft = ft.contiguous()
+    if ft.data_ptr() % 16:  # the kernel reads a tile's 16 flags as one 16-byte word
+        ft = ft.clone()
     out = torch.empty_like(vt)
     carry = torch.empty((T, 8), dtype=torch.int32, device=vt.device)
     with torch.cuda.device(vt.device):
@@ -147,6 +157,17 @@ def fr_tile_scan(vt: torch.Tensor, ft: torch.Tensor):
     _build.check(rc, "fr_tile_scan")
     LAUNCHES["fr_tile_scan"] += 1
     return out, carry
+
+
+def tile_scan_launch_shape(device=None) -> dict:
+    """The fr_tile_scan launch on the card: tiles a batch, batches in shared
+    memory a block, dynamic shared memory bytes, resident blocks an SM (the
+    persistent grid is that times the SMs)."""
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = _build.lib("field_kernels").ccf_fr_tile_scan_info(info)
+    _build.check(rc, "fr_tile_scan_info")
+    return dict(tiles_per_batch=info[0], buffers=info[1], smem_bytes=info[2], blocks_per_sm=info[3])
 
 
 # ---------------------------------------------------------------------------
@@ -260,8 +281,11 @@ def ntt_rows_launch_shape(log_len: int, device=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# K5a / K5b fr_butterfly_stage
+# K5a / K5b fr_butterfly_stages
 # ---------------------------------------------------------------------------
+
+
+BUTTERFLY_MAX_LOG_R = 4  # the kernel runs at most 4 stages: R = 2 half_hi / half_lo <= 16
 
 
 def fr_butterfly_plain(u: torch.Tensor, v: torch.Tensor, tw: torch.Tensor, dif: bool):
@@ -294,29 +318,55 @@ def fr_butterfly_stage_plain(x: torch.Tensor, table: torch.Tensor, half: int,
     return out
 
 
-def fr_butterfly_stage(x: torch.Tensor, table: torch.Tensor, half: int, dif: bool) -> torch.Tensor:
-    """One radix-2 stage of an n-point transform over x (n, 8): butterfly j
-    pairs i0 = (j // half) * 2 half + j % half with i0 + half and takes
-    table[(j % half) * (n / 2 / half)], table (n/2, 8) the n-th root's
-    powers. DIT (dif=False) or DIF; returns a new (n, 8) tensor."""
+def _halves(half_lo: int, half_hi: int, dif: bool):
+    """The stages' halves in the order a transform runs them."""
+    halves = [1 << k for k in range(half_lo.bit_length() - 1, half_hi.bit_length())]
+    return halves[::-1] if dif else halves
+
+
+def fr_butterfly_stages_plain(x: torch.Tensor, table: torch.Tensor, half_lo: int, half_hi: int,
+                              dif: bool) -> torch.Tensor:
+    for half in _halves(half_lo, half_hi, dif):
+        x = fr_butterfly_stage_plain(x, table, half, dif)
+    return x
+
+
+def fr_butterfly_stages(x: torch.Tensor, table: torch.Tensor, half_lo: int, half_hi: int,
+                        dif: bool) -> torch.Tensor:
+    """Every radix-2 stage with half in [half_lo, half_hi] (powers of two)
+    of an n-point transform over x (n, 8), in one launch: DIF from half_hi
+    down, DIT from half_lo up. Stage `half`'s butterfly j pairs i0 = (j //
+    half) * 2 half + j % half with i0 + half and takes table[(j % half) * (n
+    / 2 / half)], table (n/2, 8) the n-th root's powers. At most 16 rows
+    (R = 2 half_hi / half_lo) a column; returns a new (n, 8) tensor."""
     _check(x, table)
     n = x.shape[0]
     if x.dim() != 2 or n < 2 or n & (n - 1):
         raise ValueError(f"expected (2^k, 8) words, got {tuple(x.shape)}")
     if table.shape != (n // 2, 8):
         raise ValueError(f"twiddle table must be ({n // 2}, 8)")
-    if half < 1 or half & (half - 1) or half > n // 2:
-        raise ValueError(f"half {half} is not a power of two in [1, {n // 2}]")
+    for half in (half_lo, half_hi):
+        if half < 1 or half & (half - 1) or half > n // 2:
+            raise ValueError(f"half {half} is not a power of two in [1, {n // 2}]")
+    log_r = (2 * half_hi // half_lo).bit_length() - 1 if half_lo <= half_hi else 0
+    if not 1 <= log_r <= BUTTERFLY_MAX_LOG_R:
+        raise ValueError(f"halves {half_lo}..{half_hi}: the kernel runs 1 to {BUTTERFLY_MAX_LOG_R} stages")
     if _build.runs_plain(x):
-        return fr_butterfly_stage_plain(x, table, half, dif)
+        return fr_butterfly_stages_plain(x, table, half_lo, half_hi, dif)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        rc = _build.lib("field_kernels").ccf_fr_butterfly_stage(
-            x.data_ptr(), table.data_ptr(), out.data_ptr(), n, half.bit_length() - 1,
+        rc = _build.lib("field_kernels").ccf_fr_butterfly_stages(
+            x.data_ptr(), table.data_ptr(), out.data_ptr(), n, half_lo.bit_length() - 1, log_r,
             int(dif), _stream(x))
-    _build.check(rc, "fr_butterfly_stage")
+    _build.check(rc, "fr_butterfly_stages")
     LAUNCHES["fr_butterfly_stage"] += 1
     return out
+
+
+def fr_butterfly_stage(x: torch.Tensor, table: torch.Tensor, half: int, dif: bool) -> torch.Tensor:
+    """One radix-2 stage (DIT, or DIF) over x (n, 8): fr_butterfly_stages
+    with half_lo = half_hi = half."""
+    return fr_butterfly_stages(x, table, half, half, dif)
 
 
 class FieldOps(NamedTuple):
@@ -326,8 +376,8 @@ class FieldOps(NamedTuple):
     fr_binary: object
     fr_tile_scan: object
     ntt_rows: object
-    fr_butterfly_stage: object
+    fr_butterfly_stages: object
 
 
-KERNELS = FieldOps(fr_binary, fr_tile_scan, ntt_rows, fr_butterfly_stage)
-PLAIN = FieldOps(fr_binary_plain, fr_tile_scan_plain, ntt_rows_plain, fr_butterfly_stage_plain)
+KERNELS = FieldOps(fr_binary, fr_tile_scan, ntt_rows, fr_butterfly_stages)
+PLAIN = FieldOps(fr_binary_plain, fr_tile_scan_plain, ntt_rows_plain, fr_butterfly_stages_plain)

@@ -10,9 +10,10 @@ size as the JAX package chooses (circom_compat_tpu/ops/ntt.py:409, :451):
 Flat chain (FLAT_MIN <= n < FOUR_STEP_MIN, witness_map_flat): each
 iFFT is decimation in frequency (natural in, bit-reversed out) and each FFT
 decimation in time (bit-reversed in, natural out), so the bit reversals
-cancel. A transform is its stages above LOW_BLOCK, one fr_butterfly_stage
-launch each (K5a), and its last log2(LOW_BLOCK) stages as one ntt_rows
-launch over rows of LOW_BLOCK (K3): those stages pair elements inside
+cancel. A transform is its stages above LOW_BLOCK in one
+fr_butterfly_stages launch (K5a; at most four of them, as n < 2^14), and
+its last log2(LOW_BLOCK) stages as one ntt_rows launch over rows of
+LOW_BLOCK (K3): those stages pair elements inside
 aligned blocks of LOW_BLOCK and take twiddles that are powers of the
 LOW_BLOCK-th root, so each block is an independent LOW_BLOCK-point
 transform. The coset table, bit-reversed and with 1/n folded in, rides the
@@ -194,15 +195,12 @@ def witness_map_from_ab(plan: NTTPlan, a: torch.Tensor, b: torch.Tensor, ops=fk.
 def ntt_flat_dif(x: torch.Tensor, tw: torch.Tensor, low: torch.Tensor,
                  ops=fk.KERNELS) -> torch.Tensor:
     """(n, 8) natural order -> bit-reversed DIF transform with the table
-    tw (n/2 powers of the root): the stages above LOW_BLOCK one stage
-    launch each, then the low stages in one row launch (table `low`, the
-    LOW_BLOCK-th root's powers). The counterpart of the JAX package's
-    ntt_lm_dif (circom_compat_tpu/ops/ntt.py:307)."""
+    tw (n/2 powers of the root): the stages with half from n/2 down to
+    LOW_BLOCK in one stage launch, then the low stages in one row launch
+    (table `low`, the LOW_BLOCK-th root's powers). The counterpart of the
+    JAX package's ntt_lm_dif (circom_compat_tpu/ops/ntt.py:307)."""
     n = x.shape[0]
-    half = n // 2
-    while half >= LOW_BLOCK:
-        x = ops.fr_butterfly_stage(x, tw, half, True)
-        half //= 2
+    x = ops.fr_butterfly_stages(x, tw, LOW_BLOCK, n // 2, True)
     rows = x.reshape(n // LOW_BLOCK, LOW_BLOCK, 8)
     return ops.ntt_rows(rows, tw_dif=low).reshape(n, 8)
 
@@ -211,17 +209,14 @@ def ntt_flat_dit(x: torch.Tensor, tw: torch.Tensor, low: torch.Tensor, ops=fk.KE
                  pre=None) -> torch.Tensor:
     """Bit-reversed (n, 8) -> natural DIT transform, the mirror of
     ntt_flat_dif: the low stages first, in one row launch that also runs
-    the optional (n, 8) pre-multiply, then one stage launch per higher
-    stage. The counterpart of ntt_lm_dit (circom_compat_tpu/ops/ntt.py:281)."""
+    the optional (n, 8) pre-multiply, then the stages with half from
+    LOW_BLOCK up to n/2 in one stage launch. The counterpart of ntt_lm_dit
+    (circom_compat_tpu/ops/ntt.py:281)."""
     n = x.shape[0]
     shape = (n // LOW_BLOCK, LOW_BLOCK, 8)
     x = ops.ntt_rows(x.reshape(shape), tw_dit=low,
                      pre=None if pre is None else pre.reshape(shape)).reshape(n, 8)
-    half = LOW_BLOCK
-    while half < n:
-        x = ops.fr_butterfly_stage(x, tw, half, False)
-        half *= 2
-    return x
+    return ops.fr_butterfly_stages(x, tw, LOW_BLOCK, n // 2, False)
 
 
 def witness_map_flat(plan: NTTPlan, a: torch.Tensor, b: torch.Tensor, ops=fk.KERNELS):

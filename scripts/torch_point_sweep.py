@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""The point kernels K6/K7 (point_add) and K8 (point_tile_scan), and the
-NTT row kernel K3/K4 (ntt_rows), of this tree beside other builds, on one
-NVIDIA GPU.
+"""The point kernels K6/K7 (point_add) and K8 (point_tile_scan), the NTT
+row kernel K3/K4 (ntt_rows), the flat chain's stage kernel K5 and the Fr
+tile scan K2 of this tree beside other builds, on one NVIDIA GPU.
 
     python3 scripts/torch_point_sweep.py [--source DIR ...] [--vary SPEC ...]
-        [--kernels add,scan,ntt] [--reps N] [--sass]
+        [--kernels add,scan,ntt,butterfly,tile_scan] [--reps N] [--sass]
 
 Builds the sources the chosen kernels need (csrc/curve_kernels.cu for add
-and scan, csrc/field_kernels.cu for ntt) from this tree, from each --source
+and scan, csrc/field_kernels.cu for the others) from this tree, from each --source
 directory (another tree's csrc/, e.g. a parent commit's) and, for each
 --vary SPEC, from a copy of this tree's csrc/ with constants changed (SPEC =
 "NAME=VALUE[,NAME=VALUE]", e.g. "kAddBlocksG1=8" or "kNttLogE=2"; each NAME
@@ -22,7 +22,13 @@ A), and checks that every build returns this tree's words:
   scan  K8 at the 2^20 prove's level-0 madd and level-1 add (G1 and G2);
   ntt   K3/K4 at the 2^20 prove's three modes (1024 rows of 1024: DIF +
         pre + post, DIT + pre + post-sub, mid) and the 2^13 flat chain's
-        rows (16 of 512: DIF, DIT + pre), on the plan's own tables.
+        rows (16 of 512: DIF, DIT + pre), on the plan's own tables;
+  butterfly  K5 at the 2^13 flat chain's high stages (half 4096 .. 512,
+        DIF and DIT: one fused launch, or a tree without it one launch a
+        stage) and one stage at 2^20, with the profiler's device time
+        beside the event time;
+  tile_scan  K2 at the 2^20 prove's shape (T = 2^16 tiles of 16, flags at
+        0.9) and a ragged T, with the profiler's device time.
 The point inputs are seeded random lazy Fq words, Z = one for madd (1 row
 in 97 the identity), one scan flag in 128: the kernels' arithmetic does not
 depend on the points lying on the curve, and chip_smoke.py holds the
@@ -56,7 +62,11 @@ Q_TOP = 0x30644E72  # top word of q: keeps random words below 2q
 R_TOP = 0x30644E72  # top word of r (the same): keeps random words below 2r
 # kernel set -> (source, substrings of its kernels' (mangled) names)
 SETS = {"add": ("curve_kernels", ("point_add",)), "scan": ("curve_kernels", ("tile_scan",)),
-        "ntt": ("field_kernels", ("ntt_rows",))}
+        "ntt": ("field_kernels", ("ntt_rows",)), "butterfly": ("field_kernels", ("butterfly",)),
+        "tile_scan": ("field_kernels", ("fr_tile_scan",))}
+# entry points of older trees that this tree no longer has
+OLD_SIGNATURES = {"ccf_fr_butterfly_stage": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                                     ctypes.c_int, ctypes.c_void_p]}
 
 
 def varied_copy(spec: str, root: Path) -> Path:
@@ -96,8 +106,8 @@ def build(sources, names, markers):
         if rc != 0:
             raise RuntimeError(f"nvcc failed for {tag}:\n{(d / f'{name}.ptxas.txt').read_text()[-3000:]}")
         lib = ctypes.CDLL(str(d / f"{name}.so"))
-        for fn, argtypes in _build.SIGNATURES[name].items():
-            if hasattr(lib, fn):  # another tree may lack a newer entry point
+        for fn, argtypes in {**_build.SIGNATURES[name], **OLD_SIGNATURES}.items():
+            if hasattr(lib, fn):  # another tree may lack a newer entry point, or have an older one
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
         report = _build.ptxas_report(d / f"{name}.ptxas.txt")
@@ -143,6 +153,27 @@ def random_points(group, mode, lead, gen, dev):
     return v
 
 
+def device_times(libs, tags, launch_of, reps, match):
+    """{tag: mean device ms per launch() call} under torch.profiler, summed
+    over the kernels whose names hold `match` (None if none was recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for tag in tags:
+        launch, _ = launch_of(libs[tag][0], tag)
+        launch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                launch()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+        out[tag] = round(sum(spans) / 1e3 / reps, 5) if spans else None
+    return out
+
+
 def run_case(libs, tags, launch_of, reps, same=None):
     """Times each build on one case, in turns; returns {tag: [ms, ms]}.
     same(tag, outputs, reference) replaces word-for-word equality."""
@@ -170,6 +201,14 @@ def run_case(libs, tags, launch_of, reps, same=None):
     return times
 
 
+def field_lazy(shape, gen, dev):
+    import torch
+
+    v = torch.randint(-2**31, 2**31, tuple(shape) + (8,), dtype=torch.int32, device=dev, generator=gen)
+    v[..., 7] = torch.remainder(v[..., 7].to(torch.int64), 2 * R_TOP).to(torch.int32)
+    return v
+
+
 def ntt_cases(libs, tags, gen, dev, stream, reps, report):
     """K3/K4 at the 2^20 prove's three modes and the 2^13 flat chain's rows."""
     import torch
@@ -177,15 +216,10 @@ def ntt_cases(libs, tags, gen, dev, stream, reps, report):
     from circom_compat_tpu_torch.ops import field_kernels as fk
     from circom_compat_tpu_torch.ops import ntt
 
-    def lazy(shape):
-        v = torch.randint(-2**31, 2**31, shape + (8,), dtype=torch.int32, device=dev, generator=gen)
-        v[..., 7] = torch.remainder(v[..., 7].to(torch.int64), 2 * R_TOP).to(torch.int32)
-        return v
-
     four = ntt.get_plan(1 << 20).tables(dev, "four_step")
     flat = ntt.get_plan(1 << 13).tables(dev, "flat")
-    x, pre, post = (lazy((1024, 1024)) for _ in range(3))
-    xs, pres = lazy((16, 512)), lazy((16, 512))
+    x, pre, post = (field_lazy((1024, 1024), gen, dev) for _ in range(3))
+    xs, pres = field_lazy((16, 512), gen, dev), field_lazy((16, 512), gen, dev)
     mid = four["coset4"].reshape(1024, 1024, 8)
     # name, x, (tw_dif, tw_dit, pre, mid, post, post_op), launches per timed turn
     cases = (("2^20 DIF + pre + post", x, (four["tw1_inv"], None, pre, None, post, 0), reps),
@@ -220,13 +254,80 @@ def ntt_cases(libs, tags, gen, dev, stream, reps, report):
         report(f"ntt {name}", run_case(libs, tags, launch_of, n_reps, same_ntt), rows * L)
 
 
+def butterfly_cases(libs, tags, gen, dev, stream, reps, report):
+    """K5 at the 2^13 flat chain's high stages and as one 2^20 stage: this
+    tree's fused entry (ccf_fr_butterfly_stages) or, in a tree without it,
+    one ccf_fr_butterfly_stage launch a stage (the same words)."""
+    import torch
+
+    from circom_compat_tpu_torch.ops import ntt
+
+    # name, log2 n, half_lo, half_hi, dif, launches per timed turn
+    cases = (("2^13 DIF 4096..512", 13, 512, 4096, True, 50 * reps),
+             ("2^13 DIT 512..4096", 13, 512, 4096, False, 50 * reps),
+             ("2^20 DIF one stage", 20, 1 << 19, 1 << 19, True, 5 * reps),
+             ("2^20 DIT one stage", 20, 1 << 19, 1 << 19, False, 5 * reps))
+    for name, log_n, lo, hi, dif, n_reps in cases:
+        n = 1 << log_n
+        tw = ntt.get_plan(n).tables(dev, "flat")["tw_inv" if dif else "tw_fwd"]
+        x = field_lazy((n,), gen, dev)
+        bufs = [torch.empty_like(x), torch.empty_like(x)]
+        halves = [1 << k for k in range(lo.bit_length() - 1, hi.bit_length())]
+        halves = halves[::-1] if dif else halves
+        log_r = len(halves)
+
+        def launch_of(lib, tag):
+            field = lib["field_kernels"]
+            if hasattr(field, "ccf_fr_butterfly_stages"):
+                def launch():
+                    rc = field.ccf_fr_butterfly_stages(x.data_ptr(), tw.data_ptr(), bufs[0].data_ptr(), n,
+                                                       lo.bit_length() - 1, log_r, int(dif), stream)
+                    _build.check(rc, f"fr_butterfly_stages ({tag})")
+                return launch, (bufs[0],)
+
+            def launch():
+                src = x
+                for i, half in enumerate(halves):
+                    dst = bufs[(log_r - 1 - i) % 2]  # the last stage writes bufs[0]
+                    rc = field.ccf_fr_butterfly_stage(src.data_ptr(), tw.data_ptr(), dst.data_ptr(), n,
+                                                      half.bit_length() - 1, int(dif), stream)
+                    _build.check(rc, f"fr_butterfly_stage ({tag})")
+                    src = dst
+            return launch, (bufs[0],)
+
+        report(f"butterfly {name}", run_case(libs, tags, launch_of, n_reps), n,
+               device_times(libs, tags, launch_of, n_reps, "butterfly_stage"))
+
+
+def tile_scan_cases(libs, tags, gen, dev, stream, reps, report):
+    """K2 at the 2^20 prove's shape (T = 2^16 tiles of 16, flags at 0.9)
+    and a ragged T."""
+    import torch
+
+    for T in (1 << 16, (1 << 16) - 37):
+        v = field_lazy((T, 16), gen, dev)
+        f = torch.rand(T, 16, device=dev, generator=gen) < 0.9
+        out, carry = torch.empty_like(v), torch.empty_like(v[:, 0])
+
+        def launch_of(lib, tag):
+            def launch():
+                rc = lib["field_kernels"].ccf_fr_tile_scan(v.data_ptr(), f.data_ptr(), out.data_ptr(),
+                                                           carry.data_ptr(), T, 16, stream)
+                _build.check(rc, f"fr_tile_scan ({tag})")
+            return launch, (out, carry)
+
+        report(f"tile_scan T={T}", run_case(libs, tags, launch_of, 10 * reps), T * 16,
+               device_times(libs, tags, launch_of, 10 * reps, "fr_tile_scan"))
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--source", nargs="*", default=[], help="other csrc directories")
     ap.add_argument("--vary", nargs="*", default=[], help="NAME=VALUE[,NAME=VALUE] copies of this csrc")
-    ap.add_argument("--kernels", default="add,scan", help="any of add (K6/K7), scan (K8), ntt (K3/K4)")
+    ap.add_argument("--kernels", default="add,scan",
+                    help="any of add (K6/K7), scan (K8), ntt (K3/K4), butterfly (K5), tile_scan (K2)")
     ap.add_argument("--reps", type=int, default=3, help="launches per timed turn (more for small n)")
     ap.add_argument("--sass", action="store_true", help="print SASS opcode counts")
     args = ap.parse_args()
@@ -255,12 +356,15 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(8)
     stream = torch.cuda.current_stream().cuda_stream
     tags = list(libs)
-    results = {}
+    results, device = {}, {}
 
-    def report(key, times, n):
+    def report(key, times, n, dev_ms=None):
         results[key] = times
         per = {tag: [round(t * (1 << 20) / n, 4) for t in ts] for tag, ts in times.items()}
-        print(f"{key} ms (A..B, B..A): {json.dumps(times)}; per 2^20: {json.dumps(per)}")
+        shown = "" if dev_ms is None else f"; device ms (profiler): {json.dumps(dev_ms)}"
+        if dev_ms is not None:
+            device[key] = dev_ms
+        print(f"{key} ms (A..B, B..A): {json.dumps(times)}; per 2^20: {json.dumps(per)}{shown}")
 
     if "add" in kernels:
         for group, mode, n in ADD_SHAPES:
@@ -298,7 +402,11 @@ def main() -> int:
             torch.cuda.empty_cache()
     if "ntt" in kernels:
         ntt_cases(libs, tags, gen, dev, stream, args.reps, report)
-    print(json.dumps({"card": card, "ms": results,
+    if "butterfly" in kernels:
+        butterfly_cases(libs, tags, gen, dev, stream, args.reps, report)
+    if "tile_scan" in kernels:
+        tile_scan_cases(libs, tags, gen, dev, stream, args.reps, report)
+    print(json.dumps({"card": card, "ms": results, "device_ms": device,
                       "ptxas": {tag: res for tag, (_, res) in libs.items()}}))
     return 0
 

@@ -78,6 +78,25 @@ def test_fr_tile_scan(cuda):
     _same(carry, want_carry)
 
 
+TILE_SCAN_T = ["1", "300", "batch+1", "2^16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("case", TILE_SCAN_T)
+def test_fr_tile_scan_batches(cuda, case, density):
+    """The staged scan at T = 1, a ragged last batch (300 tiles, one batch
+    and one tile) and T = 2^16 (several batches a block of the persistent
+    grid), with flag densities 0, 0.3 and 1; tile 0 has no flag at all."""
+    batch = fk.tile_scan_launch_shape(cuda)["tiles_per_batch"]
+    T = {"1": 1, "300": 300, "batch+1": batch + 1, "2^16": 1 << 16}[case]
+    vt = _lazy_words(T * 16, R_SCALAR, cuda).reshape(T, 16, 8)
+    ft = torch.rand(T, 16, device=cuda) < density
+    ft[0] = False
+    for got, want in zip(fk.fr_tile_scan(vt, ft), fk.fr_tile_scan_plain(vt, ft)):
+        _same(got, want)
+
+
 def _upper_lazy_words(n, p, dev):
     """n words at the top of the lazy range: values in [p, 2p), led by p and
     2p - 1."""
@@ -256,6 +275,30 @@ def test_fr_butterfly_stage(cuda, dif, n):
         half *= 2
 
 
+# (n, half_lo, half_hi): R = 2 half_hi / half_lo rows a column, 2 to 16, up
+# to n/2 at the flat chain's smallest and largest sizes; a range whose
+# columns are shorter than a block's (half_lo = 1); single stages at 2^20
+STAGES_CASES = ([(n, n // r, n // 2) for n in (1024, 8192) for r in (2, 4, 8, 16)]
+                + [(1024, 1, 8), (1 << 20, 1, 1), (1 << 20, 512, 512), (1 << 20, 1 << 19, 1 << 19)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dif", [False, True], ids=["dit", "dif"])
+@pytest.mark.parametrize("n,half_lo,half_hi", STAGES_CASES,
+                         ids=[f"n{n}_{lo}-{hi}" for n, lo, hi in STAGES_CASES])
+def test_fr_butterfly_stages(cuda, n, half_lo, half_hi, dif):
+    """The fused stages against the stage-by-stage plain composition, word
+    for word, on operands at the top of the lazy range."""
+    from circom_compat_tpu_torch.ops import ntt
+
+    tw = ntt.get_plan(n).tables(cuda, "flat")["tw_inv" if dif else "tw_fwd"]
+    x = _upper_lazy_words(n, R_SCALAR, cuda)
+    before = fk.LAUNCHES["fr_butterfly_stage"]
+    got = fk.fr_butterfly_stages(x, tw, half_lo, half_hi, dif)
+    assert fk.LAUNCHES["fr_butterfly_stage"] == before + 1
+    _same(got, fk.fr_butterfly_stages_plain(x, tw, half_lo, half_hi, dif))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["mont_mul", "mont_mul_lazy", "add", "add_lazy", "sub_lazy", "mul9"])
 def test_fq_op_chain(cuda, op):
@@ -333,6 +376,7 @@ def test_setup_prove_verify_2_13_on_card(cuda):
                                                device=cuda)
     fk.reset_launches()
     proof = gd.prove_prepared(dpk, 0x1234, 0x5678, c.full_assignment())
-    assert fk.LAUNCHES["fr_butterfly_stage"] > 0 and fk.LAUNCHES["ntt_rows_mid"] == 0
+    # one fused launch a transform
+    assert fk.LAUNCHES["fr_butterfly_stage"] == 6 and fk.LAUNCHES["ntt_rows_mid"] == 0
     assert Groth16.verify_proof(pk.vk, proof, c.get_public_inputs())
     assert not Groth16.verify_proof(pk.vk, proof, [c.get_public_inputs()[0] + 1])

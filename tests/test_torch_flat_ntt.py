@@ -7,6 +7,10 @@ the JAX package.
     lazy [0, 2p) inputs;
   - fr_butterfly_stage at every stage of a 1024-point transform against
     the JAX package's _stage_slices -> fr_butterfly_lm -> _stage_merge;
+  - fr_butterfly_stages (the flat chain's high stages in one call) against
+    the same JAX stage loop (mod r) and against the stage-by-stage
+    composition (word for word), and the flat chain making one such call
+    a transform;
   - the flat tables against NTTPlan.tw_fwd_lm / tw_inv_lm /
     coset_inv_bitrev_lm, and the 512-point row table against the
     per-lane twiddles of _low_tw_stack;
@@ -104,6 +108,71 @@ def test_stage_vs_jax_slices_and_merge(dif):
         want = _from_limbs(np.asarray(jntt._stage_merge(o1, o2, n, half)).T)
         assert torch.equal(fk.fr_butterfly_stage(x, table, half, dif), want), half
         half *= 2
+
+
+def _mod_r(words):
+    return [v % R_SCALAR for v in tl.words_to_ints(np.asarray(words).reshape(-1, 8))]
+
+
+# (n, half_lo, half_hi): the flat chain's high stages at every flat size,
+# and an R = 4 sub-range in the middle of the 8192-point one
+STAGE_RANGES = [(n, tntt.LOW_BLOCK, n // 2) for n in (1024, 2048, 4096, 8192)] + [(8192, 1024, 2048)]
+
+
+@pytest.mark.parametrize("dif", [False, True], ids=["dit", "dif"])
+@pytest.mark.parametrize("n,half_lo,half_hi", STAGE_RANGES,
+                         ids=[f"n{n}_{lo}-{hi}" for n, lo, hi in STAGE_RANGES])
+def test_stages_vs_jax_stage_loop(n, half_lo, half_hi, dif):
+    """fr_butterfly_stages (its plain version here) against the JAX
+    package's stage loop over the same halves in the transform's order
+    (DIF descending, DIT ascending; _stage_slices -> fr_butterfly_lm in
+    interpret mode -> _stage_merge), mod r since Pallas words are lazy, and
+    word for word against the composition of fr_butterfly_stage_plain."""
+    jp = jntt.get_plan(n)
+    table_lm = jnp.asarray(jp.tw_inv_lm if dif else jp.tw_fwd_lm)
+    table = _from_limbs(np.asarray(table_lm).T)
+    x = _words(_lazy(n))
+    halves = [1 << k for k in range(n.bit_length()) if half_lo <= 1 << k <= half_hi]
+    x_lm, composed = jnp.asarray(_limbs(x).T), x
+    for half in halves[::-1] if dif else halves:
+        u, v = jntt._stage_slices(x_lm, n, half)
+        o1, o2 = fp.fr_butterfly_lm(u, v, jntt._stage_tw(table_lm, n, half), dif=dif)
+        x_lm = jntt._stage_merge(o1, o2, n, half)
+        composed = fk.fr_butterfly_stage_plain(composed, table, half, dif)
+    got = fk.fr_butterfly_stages(x, table, half_lo, half_hi, dif)
+    assert torch.equal(got, composed)
+    assert torch.equal(fk.fr_butterfly_stages_plain(x, table, half_lo, half_hi, dif), composed)
+    assert _mod_r(got) == _mod_r(_from_limbs(np.asarray(x_lm).T))
+    assert all(v < 2 * R_SCALAR for v in tl.words_to_ints(got.numpy()))
+
+
+@pytest.mark.parametrize("half_lo,half_hi", [(64, 2048), (1024, 512), (3, 12), (512, 8192)])
+def test_stages_refuses_ranges_the_kernel_does_not_take(half_lo, half_hi):
+    """More than 16 rows a column (R = 2 half_hi / half_lo), an empty range,
+    halves that are not powers of two or beyond n/2 raise on the CPU as on
+    the card."""
+    n = 8192
+    table = tntt.get_plan(n).tables("cpu", "flat")["tw_fwd"]
+    with pytest.raises(ValueError):
+        fk.fr_butterfly_stages(_words(_lazy(n)), table, half_lo, half_hi, True)
+
+
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_flat_chain_runs_one_stages_call_a_transform(n):
+    """The witness map's six transforms make six fr_butterfly_stages calls,
+    each over half LOW_BLOCK .. n/2."""
+    calls = []
+
+    def stages(x, table, half_lo, half_hi, dif):
+        calls.append((half_lo, half_hi, dif))
+        return fk.fr_butterfly_stages_plain(x, table, half_lo, half_hi, dif)
+
+    a, b = (_mont_words([int.from_bytes(RNG.bytes(32), "little") for _ in range(n)]) for _ in range(2))
+    plan = tntt.get_plan(n)
+    want = tntt.witness_map_flat(plan, a, b, fk.PLAIN)
+    got = tntt.witness_map_flat(plan, a, b, fk.PLAIN._replace(fr_butterfly_stages=stages))
+    assert torch.equal(got, want)
+    assert calls == [(tntt.LOW_BLOCK, n // 2, dif) for dif in (True, False) * 3]
 
 
 @pytest.mark.parametrize("n", [1024, 8192])

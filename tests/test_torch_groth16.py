@@ -7,7 +7,10 @@
     convert.proving_key_from_numpy;
   - the fixture zkey is exactly what the JAX package writes for that key;
   - no file of the port (or chip_smoke.py) imports jax or circom_compat_tpu;
-  - with no card, the default device raises and names the device argument.
+  - with no card, the default device raises and names the device argument;
+  - a prepared assignment as the JAX package's (N, 16) 16-bit limbs or as
+    (N, 8) int32 words encodes to the words of the Python ints, and the
+    chain254 proof from the limbs is the golden proof.
 The byte-exact comparison with groth16_jax.prove costs minutes of XLA build
 here and rides the slow tier.
 """
@@ -23,6 +26,7 @@ import torch
 
 from circom_compat_tpu.circom.zkey_writer import write_zkey
 from circom_compat_tpu.models import generate_parameters
+from circom_compat_tpu.ops import limbs as jax_limbs
 from circom_compat_tpu.utils.chain import chain_circuit as jax_chain_circuit
 from circom_compat_tpu_torch import convert
 from circom_compat_tpu_torch.circom.zkey import read_zkey
@@ -167,6 +171,48 @@ def test_wrappers_check_their_operands():
     meta = a.to("meta")  # neither the CPU (plain version) nor CUDA (kernel)
     with pytest.raises(ValueError, match="CUDA"):
         fk.fr_binary("add", meta, meta)
+
+
+def _prepared(form, values):
+    """The assignment `values` in one of encode_assignment's array forms."""
+    if form == "limbs":  # the JAX package's prepared layout (read_wtns_limbs)
+        return jax_limbs.ints_to_limbs(values)
+    return tl.ints_to_words(values)
+
+
+@pytest.mark.parametrize("form", ["limbs", "words"])
+def test_encode_assignment_forms(form):
+    values = chain_circuit(k=254, a=3).full_assignment() + [0, R_SCALAR - 1]  # canonical, as prepared
+    want = gd.encode_assignment(values)
+    got = gd.encode_assignment(_prepared(form, values))
+    assert got.dtype == np.int32 and got.shape == (len(values), 8)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("bad", ["shape_n4", "limb_of_2_16", "negative_limb"])
+def test_encode_assignment_refuses(bad):
+    limbs = jax_limbs.ints_to_limbs([3, 5, 7])
+    if bad == "shape_n4":
+        arr, match = limbs[:, :4], "shape"
+    elif bad == "limb_of_2_16":
+        arr, match = limbs.copy(), "2\\^16"
+        arr[1, 3] = 1 << 16
+    else:
+        arr, match = limbs.astype(np.int64), "2\\^16"
+        arr[2, 0] = -1
+    with pytest.raises(ValueError, match=match):
+        gd.encode_assignment(arr)
+
+
+def test_chain254_golden_from_prepared_limbs():
+    """The JAX package's (N, 16) limb assignment proves to the same bytes
+    as the Python ints (the golden proof)."""
+    rec, golden = _golden()
+    pk, m = read_zkey(GOLDEN / "chain254.zkey")
+    dpk = gd.DeviceProvingKey.build(pk, m, m.num_constraints, device="cpu")
+    limbs = jax_limbs.ints_to_limbs(chain_circuit(k=254, a=3).full_assignment())
+    assert limbs.shape[1] == 16
+    assert gd.prove_prepared(dpk, rec["r"], rec["s"], limbs) == golden
 
 
 @pytest.mark.slow
