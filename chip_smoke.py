@@ -42,11 +42,28 @@ Phases (each passes or raises; nothing is caught):
   7. setup on the card at 2^20 for phase 4's circuit, by stage, with its
      peak device memory; the 2^20 proof made with that key verified by
      pairing;
-  8. the K9 microbenchmark (ops/field_bench.run): G ops/s of each Fq op.
+  8. the K9 microbenchmark (ops/field_bench.run): G ops/s of each Fq op;
+  9. the prove server at 2^20: phase 7's key written with write_zkey and the
+     chain's assignment with write_wtns; a ProveServer on a unix socket
+     (staged keys released first) answers a ping, three witness_file
+     requests, one with fixed r/s that must equal
+     Groth16.create_proof_with_reduction_and_matrices on the same key byte
+     for byte, ok: false to a malformed request, then one more proof; one
+     served proof verified by pairing; load, staging, warm-up, each
+     request's prove_s and the peak device memory;
+ 10. the CLI at 2^13 (`cli.main`, on the card by default): phase 6's key
+     written to a file; prove (which must launch fr_butterfly_stages),
+     export-vkey, verify (0; 1 for a tampered public input) and
+     export-calldata (the ethereum.Proof tuple);
+ 11. the standalone msm_g1 / msm_g2 at 2^20 points of known discrete logs
+     from phase 4's pools: equal to (sum s_i k_i) G, then points/s (median
+     of 3 after the checked call).
 Phases 2-3 also hold the flat chain's stage kernel (2^10 to 2^13 and 2^20), the Fq
 binary modes (2^20) and the K9 op chain (2^16 elements, K = 64) against
 their plain versions. Each kernel's launches are counted on the path that
-runs it (phase 4, 6 or 7, or 8 for K9), the counts set to 0 just before.
+runs it (phase 4, 6 or 7, or 8 for K9), the counts set to 0 just before;
+phases 9-11 count theirs the same way (launches_by_path on the kernels
+line), and each must launch every kernel of its path.
 The kernels line (JSON; the K6/K7 and K8 entries also carry ptxas's
 registers and spill bytes per mode, the K3/K4 entries each mode's numbers
 and each entry kernel's resources) and then the result line close the
@@ -60,6 +77,8 @@ import random
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -219,7 +238,7 @@ def synthetic_key(k, rng, ks, g1_pool, g2_pool, device):
     proving key whose every point has a known discrete log: query row i of
     a section is k_((i + offset) mod POOL) times the generator, three rows
     per section are infinity, and alpha, beta, gamma, delta are seeded.
-    Returns (circuit, DeviceProvingKey, the secrets)."""
+    Returns (circuit, its (A, B, C) rows, DeviceProvingKey, the secrets)."""
     from circom_compat_tpu_torch.circom.zkey import G1Section, G2Section, ProvingKey, VerifyingKey
     from circom_compat_tpu_torch.constants import R_SCALAR
     from circom_compat_tpu_torch.models import groth16_device as gd
@@ -228,6 +247,7 @@ def synthetic_key(k, rng, ks, g1_pool, g2_pool, device):
     from circom_compat_tpu_torch.utils.chain import chain_circuit
 
     circuit = chain_circuit(k=k, a=3)
+    rows = circuit.to_matrices()  # once: 3 (k,)-row lists at 2^20
     n_vars, n_pub, n = k + 2, 1, k + 2
     pools = {False: cv.encode_g1_affine(g1_pool).view(np.uint16).reshape(POOL, 2, 16),
              True: cv.encode_g2_affine(g2_pool).view(np.uint16).reshape(POOL, 4, 16)}
@@ -254,10 +274,10 @@ def synthetic_key(k, rng, ks, g1_pool, g2_pool, device):
                     b_g2_query=G2Section(secs["b2"][0]), h_query=G1Section(secs["h"][0]),
                     l_query=G1Section(secs["l"][0]), n_vars=n_vars, n_public=n_pub,
                     domain_size=n)
-    dpk = gd.DeviceProvingKey.from_matrix_rows(pk, circuit.a, circuit.b, 2, k, device=device)
+    dpk = gd.DeviceProvingKey.from_matrix_rows(pk, rows[0], rows[1], 2, k, device=device)
     secret = dict(alpha=alpha, beta=beta, delta=delta,
                   dlogs={name: sec[1] for name, sec in secs.items()})
-    return circuit, dpk, secret
+    return circuit, rows, dpk, secret
 
 
 def expected_proof(secret, asg, h_ints, r, s):
@@ -282,6 +302,199 @@ def expected_proof(secret, asg, h_ints, r, s):
             - r * s * delta) % R
     return Proof(a=rc.G1.mul(rc.g1_generator(), a_sc), b=rc.G2.mul(rc.g2_generator(), b2_sc),
                  c=rc.G1.mul(rc.g1_generator(), c_sc))
+
+
+def server_phase(dev, card, work, pk, rows, circuit, asg, rng, on_path, kernels):
+    """[9] The prove server over `pk` (written with write_zkey) and the
+    circuit's assignment (write_wtns): ping, three witness_file requests,
+    one with fixed r/s equal to the direct prove byte for byte, ok: false
+    for a malformed request, one more proof, shutdown; a served proof
+    verified by pairing."""
+    import torch
+
+    from circom_compat_tpu_torch import cli
+    from circom_compat_tpu_torch.circom.wtns import write_wtns
+    from circom_compat_tpu_torch.circom.zkey import read_zkey
+    from circom_compat_tpu_torch.circom.zkey_writer import write_zkey
+    from circom_compat_tpu_torch.constants import R_SCALAR as R
+    from circom_compat_tpu_torch.models.groth16 import Groth16
+    from circom_compat_tpu_torch.server import ProveServer, request
+
+    cuda = dev.type == "cuda"
+    n = pk.n_vars
+    zkey, wtns, sock = (str(Path(work) / f) for f in ("key.zkey", "asg.wtns", "p.sock"))
+    t0 = time.perf_counter()
+    write_zkey(zkey, pk, rows[0], rows[1], len(circuit.r1cs.constraints))
+    zkey_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_wtns(asg, wtns)
+    wtns_s = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    print(f"[9] zkey of n_vars {n} written in {zkey_s:.4f} s ({Path(zkey).stat().st_size} B), "
+          f"wtns in {wtns_s:.4f} s; earlier staged keys released: "
+          f"{torch.cuda.memory_allocated() if cuda else 'not measured'} device bytes allocated")
+    server = ProveServer(zkey, device=dev)
+    server.warmup()
+    ready = threading.Event()
+    serving = threading.Thread(target=server.serve, args=(sock,), kwargs={"ready_cb": ready.set},
+                               daemon=True)  # a failed phase must not leave the process waiting
+    serving.start()
+    if not ready.wait(60):
+        raise AssertionError("the prove server did not start")
+    ping = request(sock, {"cmd": "ping"})
+    if not (ping["ok"] and ping["compile_s"] is not None and ping["n_vars"] == n):
+        raise AssertionError(f"bad ping: {ping}")
+    r9, s9 = rng.randrange(R), rng.randrange(R)
+    reqs = [{"witness_file": wtns}] * 3 + [{"witness_file": wtns, "r": str(r9), "s": str(s9)}]
+    walls = []
+
+    def serve_four():
+        out = []
+        for req in reqs:
+            t1 = time.perf_counter()
+            resp = request(sock, req)
+            walls.append(time.perf_counter() - t1)
+            if not resp["ok"]:
+                raise AssertionError(f"the server refused a good request: {resp}")
+            out.append(resp)
+        return out
+
+    served, launches = on_path("server", kernels, serve_four)
+    print(f"[9] launches in the four requests: {json.dumps(launches)}")
+    if request(sock, {"nonsense": 1})["ok"]:
+        raise AssertionError("the server accepted a malformed request")
+    after = request(sock, {"witness_file": wtns})
+    if not after["ok"]:
+        raise AssertionError(f"the server stopped serving after a bad request: {after}")
+    served.append(after)
+    if request(sock, {"cmd": "shutdown"}) != {"ok": True, "bye": True}:
+        raise AssertionError("the server did not shut down")
+    serving.join(60)
+    if serving.is_alive():
+        raise AssertionError("the server thread did not end")
+    peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    prove_s = [resp["prove_s"] for resp in served]
+    print(f"[9] ProveServer ({card}): load_s {server.load_s:.4f}, stage_s {server.stage_s:.4f}, "
+          f"warm-up {server.compile_s:.4f} s; prove_s of {len(served)} requests {prove_s}, median "
+          f"{statistics.median(prove_s):.4f} s; client round trips (s) "
+          f"{[round(w, 4) for w in walls]}; peak device memory {peak} B; the witness_file path "
+          "reads (N, 16) limbs (read_wtns_limbs), no Python ints")
+    public = [int(v) for v in served[0]["public"]]
+    if public != circuit.get_public_inputs() or any(r["public"] != served[0]["public"] for r in served):
+        raise AssertionError("the server's public inputs are wrong")
+    if not Groth16.verify_proof(pk.vk, cli._proof_from_json(served[0]["proof"]), public):
+        raise AssertionError("a served proof does not verify")
+    del server
+    if cuda:
+        torch.cuda.empty_cache()
+    pk_r, m_r = read_zkey(zkey)
+    direct = Groth16.create_proof_with_reduction_and_matrices(
+        pk_r, r9, s9, m_r, m_r.num_instance_variables, m_r.num_constraints, asg, device=dev)
+    if json.dumps(cli._proof_to_json(direct)) != json.dumps(served[3]["proof"]):
+        raise AssertionError("the served fixed-r/s proof differs from the direct prove")
+    print("[9] a served proof verifies by pairing; the fixed-r/s request equals "
+          "Groth16.create_proof_with_reduction_and_matrices byte for byte; the server answered "
+          "ok: false to a malformed request and then served one more proof")
+    del pk_r, m_r, direct
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def cli_phase(card, work, pk, rows, circuit, on_path):
+    """[10] The CLI on its default device: prove, export-vkey, verify (and a
+    tampered public input), export-calldata against the ethereum.Proof tuple."""
+    import contextlib
+
+    from circom_compat_tpu_torch import cli
+    from circom_compat_tpu_torch import ethereum as eth
+    from circom_compat_tpu_torch.circom.wtns import write_wtns
+    from circom_compat_tpu_torch.circom.zkey_writer import write_zkey
+    from circom_compat_tpu_torch.constants import R_SCALAR as R
+
+    f = {name: str(Path(work) / name) for name in
+         ("small.zkey", "small.wtns", "proof.json", "public.json", "vk.json", "bad.json")}
+    write_zkey(f["small.zkey"], pk, rows[0], rows[1], len(circuit.r1cs.constraints))
+    write_wtns(circuit.full_assignment(), f["small.wtns"])
+    public = circuit.get_public_inputs()
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        return rc, out.getvalue()
+
+    t0 = time.perf_counter()
+    (rc, _), launches = on_path("cli", ["fr_butterfly_stage", "fr_binary", "fr_tile_scan",
+                                        "ntt_rows_low", "point_add_g1", "point_add_g2",
+                                        "tile_scan_g1", "tile_scan_g2"],
+                                lambda: run(["prove", f["small.zkey"], f["small.wtns"],
+                                             f["proof.json"], f["public.json"]]))
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError("the CLI prove failed")
+    print(f"[10] CLI prove at domain {pk.domain_size}: {wall:.4f} s wall (zkey read, staging, "
+          f"prove, JSON; {card}); launches: {json.dumps(launches)}")
+    if run(["export-vkey", f["small.zkey"], f["vk.json"]])[0] != 0:
+        raise AssertionError("export-vkey failed")
+    if json.loads(Path(f["vk.json"]).read_text()) != cli._vk_to_json(pk.vk):
+        raise AssertionError("export-vkey wrote another key")
+    if run(["verify", f["vk.json"], f["public.json"], f["proof.json"]]) != (0, "OK!\n"):
+        raise AssertionError("the CLI does not verify its own proof")
+    Path(f["bad.json"]).write_text(json.dumps([str((public[0] + 1) % R)]))
+    if run(["verify", f["vk.json"], f["bad.json"], f["proof.json"]])[0] != 1:
+        raise AssertionError("the CLI verified a tampered public input")
+    rc, line = run(["export-calldata", f["public.json"], f["proof.json"]])
+    proof = cli._proof_from_json(json.loads(Path(f["proof.json"]).read_text()))
+    (ax, ay), ((bx1, bx0), (by1, by0)), (cx, cy) = eth.Proof.from_ark(proof).as_tuple()
+    words = [int(v, 16) for v in line.replace("[", "").replace("]", "").replace('"', "")
+             .strip().split(",")]
+    if rc != 0 or words != [ax, ay, bx1, bx0, by1, by0, cx, cy] + public:
+        raise AssertionError("the calldata line is not the ethereum.Proof tuple")
+    print("[10] verify returns 0 (1 for a tampered public input); export-vkey equals the key's vk; "
+          "the export-calldata line equals the ethereum.Proof tuple and the public input")
+
+
+def msm_phase(dev, card, ks, g1_pool, g2_pool, gen, on_path, n=1 << LOG_N):
+    """[11] msm_g1 / msm_g2 over n points of known discrete logs (pool
+    points, every 997th row infinity) and seeded canonical scalars: equal
+    to (sum s_i k_i) G, then points/s, the median of 3 after that call."""
+    import torch
+
+    from circom_compat_tpu_torch.constants import R_SCALAR as R
+    from circom_compat_tpu_torch.ops import curve as cv
+    from circom_compat_tpu_torch.ops import limbs as lc
+    from circom_compat_tpu_torch.ops import msm
+    from circom_compat_tpu_torch.refmath import curve as rc
+
+    for g2, pool in ((False, g1_pool), (True, g2_pool)):
+        grp, base = (rc.G2, rc.g2_generator()) if g2 else (rc.G1, rc.g1_generator())
+        tag = "g2" if g2 else "g1"
+        pool_xy = torch.from_numpy(cv.encode_g2_affine(pool) if g2 else cv.encode_g1_affine(pool))
+        idx = torch.randint(0, len(pool), (n,), device=dev, generator=gen)
+        xy = pool_xy.to(dev)[idx]
+        xy[::997] = 0
+        sc = torch.randint(-2**31, 2**31, (n, 8), dtype=torch.int32, device=dev, generator=gen)
+        sc[:, 7] = torch.remainder(sc[:, 7].to(torch.int64), 0x30644E72).to(torch.int32)  # < r
+        dl = [ks[j] for j in idx.tolist()]
+        for i in range(0, n, 997):
+            dl[i] = 0
+        total = sum(a * b for a, b in zip(lc.words_to_ints(sc.cpu().numpy()), dl)) % R
+        fn = msm.msm_g2 if g2 else msm.msm_g1
+        got, launches = on_path(f"msm_{tag}", [f"tile_scan_{tag}", f"point_add_{tag}"],
+                                lambda: fn(xy, sc, device=dev))
+        if got != grp.mul(base, total):
+            raise AssertionError(f"msm_{tag} differs from the known-dlog sum")
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            fn(xy, sc, device=dev)
+            times.append(time.perf_counter() - t1)
+        med = statistics.median(times)
+        print(f"[11] msm_{tag} of {n} points (window bits {msm.pick_window_bits(n)}; launches "
+              f"{json.dumps(launches)}): equals the known-dlog sum; median {med:.4f} s of "
+              f"{[round(t, 4) for t in times]}: {n / med:.1f} points/s ({card})")
 
 
 def main() -> int:
@@ -589,7 +802,7 @@ def main() -> int:
     from circom_compat_tpu_torch.models import groth16_device as gd
 
     t0 = time.perf_counter()
-    circuit, dpk, secret = synthetic_key(n - 2, rng, ks, g1_pool, g2_pool, dev)
+    circuit, rows, dpk, secret = synthetic_key(n - 2, rng, ks, g1_pool, g2_pool, dev)
     print(f"[4] chain k={n - 2}, n_vars={dpk.n_vars}, domain 2^{LOG_N}: circuit + key staged in "
           f"{time.perf_counter() - t0:.3f} s; staged key {dpk.nbytes()} device bytes")
     wbits = gd.default_window_bits(dpk)
@@ -680,17 +893,18 @@ def main() -> int:
                         (rng.randrange(1, R) for _ in range(5))))
 
     cs = chain_circuit(k=(1 << LOG_SMALL) - 2, a=7)
+    rows6 = cs.to_matrices()
     reset_all()
     st6 = {}
     t0 = time.perf_counter()
-    pk6 = generate_parameters_from_matrices(cs.a, cs.b, cs.c, cs.num_inputs, cs.num_variables,
+    pk6 = generate_parameters_from_matrices(*rows6, cs.r1cs.num_inputs, cs.r1cs.num_variables,
                                             device=dev, stage_times=st6, **toxic())
     setup6 = time.perf_counter() - t0
     print(f"[6] setup at 2^{LOG_SMALL} on the card (self-check passed): {setup6:.4f} s; stages (s): "
           + json.dumps({k2: round(v, 4) for k2, v in st6.items()}))
     print(f"[6] setup launches: {json.dumps(counts())}")
     buf = io.BytesIO()
-    write_zkey(buf, pk6, cs.a, cs.b, cs.num_constraints)
+    write_zkey(buf, pk6, rows6[0], rows6[1], len(cs.r1cs.constraints))
     buf.seek(0)
     pk6r, m6 = read_zkey(buf)
     dpk6 = gd.DeviceProvingKey.build(pk6r, m6, m6.num_constraints, device=dev)
@@ -761,9 +975,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     st7 = {}
     t0 = time.perf_counter()
-    pk7 = generate_parameters_from_matrices(circuit.a, circuit.b, circuit.c, circuit.num_inputs,
-                                            circuit.num_variables, device=dev, stage_times=st7,
-                                            **toxic())
+    pk7 = generate_parameters_from_matrices(*rows, circuit.r1cs.num_inputs,
+                                            circuit.r1cs.num_variables, device=dev,
+                                            stage_times=st7, **toxic())
     setup7 = time.perf_counter() - t0
     launches7 = counts()
     print(f"[7] setup at 2^{LOG_N} on the card (self-check passed): {setup7:.4f} s; peak device "
@@ -774,8 +988,8 @@ def main() -> int:
     for name in ("fr_binary", "point_add_g1", "point_add_g2"):
         if launches7[name] <= 0:
             raise AssertionError(f"kernel {name} did not launch in the 2^20 setup")
-    dpk7 = gd.DeviceProvingKey.from_matrix_rows(pk7, circuit.a, circuit.b, circuit.num_inputs,
-                                                circuit.num_constraints, device=dev)
+    dpk7 = gd.DeviceProvingKey.from_matrix_rows(pk7, rows[0], rows[1], circuit.r1cs.num_inputs,
+                                                len(circuit.r1cs.constraints), device=dev)
     t1 = time.perf_counter()
     proof7 = gd.prove_prepared(dpk7, r_, s_, asg, wbits)
     prove7 = time.perf_counter() - t1
@@ -783,7 +997,7 @@ def main() -> int:
         raise AssertionError("the 2^20 proof made with the card's setup key does not verify")
     print(f"[7] 2^{LOG_N} proof with the card's setup key ({prove7:.4f} s, first prove on this key) "
           "verifies by pairing")
-    del dpk7, pk7
+    del dpk7  # pk7 (host) stays for phase 9's zkey
     torch.cuda.empty_cache()
 
     # ---- 8. K9: the per-op microbenchmark ------------------------------------
@@ -792,6 +1006,30 @@ def main() -> int:
     take_launches(counts(), ["fq_op_chain"], "the K9 microbenchmark")
     print(f"[8] K9 G ops/s (n=2^16, K={K9_K}; {card}): "
           + json.dumps({k2: round(v, 3) for k2, v in rates.items()}))
+
+    def path_launches(counts_now, names, path):
+        """Each of `names` launched on `path` (counts set to 0 just before):
+        recorded beside the main path's count."""
+        for name in names:
+            if counts_now[name] <= 0:
+                raise AssertionError(f"kernel {name} did not launch on {path}")
+            results[name].setdefault("launches_by_path", {})[path] = counts_now[name]
+
+    def on_path(path, names, fn):
+        """fn() with every count set to 0 just before it; each of `names`
+        must have launched just after."""
+        reset_all()
+        out = fn()
+        torch.cuda.synchronize()
+        now = counts()
+        path_launches(now, names, path)
+        return out, {k2: v for k2, v in now.items() if v}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke") as work:
+        server_phase(dev, card, work, pk7, rows, circuit, asg, rng, on_path,
+                     ["fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid", *ck.LAUNCHES])
+        cli_phase(card, work, pk6, rows6, cs, on_path)
+    msm_phase(dev, card, ks, g1_pool, g2_pool, gen, on_path)
 
     for name in ("ntt_rows_low", "ntt_rows_mid"):
         results[name].update(entry_kernels={f"ccf_ntt_rows_log{log}": r for log, r in ntt_res.items()})

@@ -1,1 +1,2 @@
-"""Artifact layer: zkey reader and writer, and the host QAP oracles."""
+"""Artifact layer: r1cs and wtns readers, the circuit, the builder, the zkey
+reader and writer, and the host QAP oracles."""

@@ -6,7 +6,7 @@ infinity), single points as canonical affine int tuples, matrix values as
 (nnz, 16) uint16 Montgomery limbs. A caller that has the other package's key
 flattens it into a dict of those arrays and ints, and these functions build
 this package's ProvingKey and ConstraintMatrices from it, with no import of
-the other package.
+the other package. affine_words_from_limbs carries MSM operands across.
 
 Keys of the dict:
   a_query, b_g1_query, l_query, h_query   (n, 2, 16) uint16
@@ -28,6 +28,7 @@ from typing import Mapping
 import numpy as np
 
 from .circom.zkey import ConstraintMatrices, G1Section, G2Section, ProvingKey, VerifyingKey
+from .ops import limbs as limb_codec
 
 
 def _limbs(arr, coords: int, name: str) -> np.ndarray:
@@ -90,3 +91,15 @@ def matrices_from_numpy(d: Mapping) -> ConstraintMatrices:
         num_constraints=int(d["num_constraints"]),
         a_rows=ar, a_cols=ac, a_values_mont=av, b_rows=br, b_cols=bc, b_values_mont=bv,
     )
+
+
+def affine_words_from_limbs(xs, ys) -> np.ndarray:
+    """The JAX package's MSM operands, x and y as (N, 16) (G1) or (N, 2, 16)
+    (G2) Montgomery 16-bit limbs, -> this package's (N, 2, 8) / (N, 2, 2, 8)
+    int32 affine words (ops/msm.msm_g1 / msm_g2)."""
+    x, y = np.asarray(xs), np.asarray(ys)
+    if x.shape != y.shape or x.ndim not in (2, 3) or x.shape[-1] != 16:
+        raise ValueError(f"expected x and y as (N, 16) or (N, 2, 16) limbs, got {x.shape}, {y.shape}")
+    if x.size and max(int(x.max()), int(y.max())) > 0xFFFF:
+        raise ValueError("limbs must be 16-bit")
+    return limb_codec.words_view(np.stack((x, y), axis=1))

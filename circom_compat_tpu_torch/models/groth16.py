@@ -1,13 +1,16 @@
 """Groth16 facade: prove on the card, verify on the host.
 
-The prover is models/groth16_device.py. Verification is one pairing
-product against the prepared verifying key, on the host (refmath); it is
-O(1) per proof. Proof and verifying-key points are range-, curve- and (for
-G2) subgroup-checked before any pairing.
+The prover is models/groth16_device.py: `Groth16.prove` takes a
+witness-attached CircomCircuit and fresh randomizers,
+`create_proof_with_reduction_and_matrices` explicit ones. Verification is
+one pairing product against the processed verifying key, on the host
+(refmath); it is O(1) per proof. Proof and verifying-key points are range-,
+curve- and (for G2) subgroup-checked before any pairing.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -59,7 +62,12 @@ def validate_g2(p) -> bool:
     return curve.g2_in_correct_subgroup(((x0, x1), (y0, y1)))
 
 
-def prepare_verifying_key(vk: VerifyingKey) -> PreparedVerifyingKey:
+def validate_proof(proof: Proof) -> bool:
+    return validate_g1(proof.a) and validate_g2(proof.b) and validate_g1(proof.c)
+
+
+def validate_vk(vk: VerifyingKey) -> None:
+    """Raise ValueError on any malformed verifying-key point."""
     if not validate_g1(vk.alpha_g1):
         raise ValueError("vk.alpha_g1 is not a valid G1 point")
     for name in ("beta_g2", "gamma_g2", "delta_g2"):
@@ -68,16 +76,28 @@ def prepare_verifying_key(vk: VerifyingKey) -> PreparedVerifyingKey:
     for i, p in enumerate(vk.gamma_abc_g1):
         if not validate_g1(p):
             raise ValueError(f"vk.gamma_abc_g1[{i}] is not a valid G1 point")
+
+
+def random_scalar(rng=None) -> int:
+    """A uniform Fr scalar: 384 random bits reduced mod r, from os.urandom
+    unless `rng` (a random.Random) is given."""
+    bits = rng.getrandbits(384) if rng is not None else int.from_bytes(os.urandom(48), "little")
+    return bits % R_SCALAR
+
+
+def process_vk(vk: VerifyingKey) -> PreparedVerifyingKey:
+    validate_vk(vk)
     return PreparedVerifyingKey(
         vk=vk, alpha_beta=pairing.pairing(vk.beta_g2, vk.alpha_g1),
         gamma_neg=curve.G2.neg(vk.gamma_g2), delta_neg=curve.G2.neg(vk.delta_g2),
     )
 
 
-def verify_with_prepared(pvk: PreparedVerifyingKey, public_inputs: Sequence[int],
-                         proof: Proof) -> bool:
-    """e(A, B) == e(alpha, beta) * e(IC(x), gamma) * e(C, delta)."""
-    if not (validate_g1(proof.a) and validate_g2(proof.b) and validate_g1(proof.c)):
+def verify_with_processed_vk(pvk: PreparedVerifyingKey, public_inputs: Sequence[int],
+                             proof: Proof) -> bool:
+    """e(A, B) == e(alpha, beta) * e(IC(x), gamma) * e(C, delta). A
+    malformed proof point gives False, not an undefined pairing value."""
+    if not validate_proof(proof):
         return False
     ic = pvk.vk.gamma_abc_g1
     if len(public_inputs) + 1 != len(ic):
@@ -91,7 +111,12 @@ def verify_with_prepared(pvk: PreparedVerifyingKey, public_inputs: Sequence[int]
 
 
 def verify_proof(vk: VerifyingKey, proof: Proof, public_inputs: Sequence[int]) -> bool:
-    return verify_with_prepared(prepare_verifying_key(vk), public_inputs, proof)
+    return verify_with_processed_vk(process_vk(vk), public_inputs, proof)
+
+
+# the names of the earlier facade
+prepare_verifying_key = process_vk
+verify_with_prepared = verify_with_processed_vk
 
 
 class Groth16:
@@ -107,5 +132,26 @@ class Groth16:
         return groth16_device.prove(pk, r, s, matrices, num_inputs, num_constraints,
                                     full_assignment, device=device)
 
-    prepare_verifying_key = staticmethod(prepare_verifying_key)
+    @staticmethod
+    def prove(pk: ProvingKey, circuit, rng=None, device=None) -> Proof:
+        """Randomized prove over a witness-attached CircomCircuit (reference:
+        Groth16::prove at src/zkey.rs:866): fresh r, s from random_scalar,
+        the prove on the card unless `device` names another."""
+        from . import groth16_device
+
+        r, s = random_scalar(rng), random_scalar(rng)
+        matrix_a, matrix_b, _ = circuit.to_matrices()
+
+        class _Rows:
+            a = matrix_a
+            b = matrix_b
+
+        return groth16_device.prove(pk, r, s, _Rows, circuit.r1cs.num_inputs,
+                                    len(circuit.r1cs.constraints), circuit.full_assignment(),
+                                    device=device)
+
+    process_vk = staticmethod(process_vk)
+    verify_with_processed_vk = staticmethod(verify_with_processed_vk)
     verify_proof = staticmethod(verify_proof)
+    prepare_verifying_key = staticmethod(prepare_verifying_key)
+    verify_with_prepared = staticmethod(verify_with_prepared)

@@ -113,11 +113,11 @@ def qap_instance_map(matrix_a: Rows, matrix_b: Rows, matrix_c: Rows, num_inputs:
 
 def generate_parameters(circuit, alpha: int, beta: int, gamma: int, delta: int,
                         t: int) -> ProvingKey:
-    """Host setup from explicit toxic waste on exact ints. `circuit` has
-    to_matrices() -> (A, B, C) row lists [(value, wire)], num_inputs (the
-    constant wire included) and num_variables."""
+    """Host setup from explicit toxic waste on exact ints. `circuit` is a
+    CircomCircuit: to_matrices() -> (A, B, C) row lists [(value, wire)], and
+    r1cs.num_inputs (the constant wire included) and r1cs.num_variables."""
     matrix_a, matrix_b, matrix_c = circuit.to_matrices()
-    num_inputs, num_vars = circuit.num_inputs, circuit.num_variables
+    num_inputs, num_vars = circuit.r1cs.num_inputs, circuit.r1cs.num_variables
     domain_size = qap.domain_size_for(len(matrix_a), num_inputs)
     a_t, b_t, c_t, _zt = qap_instance_map(matrix_a, matrix_b, matrix_c, num_inputs, num_vars, t)
     gamma_inv = pow(gamma, -1, R_SCALAR)
@@ -353,5 +353,5 @@ def generate_random_parameters(circuit, rng=None, device=None) -> ProvingKey:
     alpha, beta, gamma, delta, t = (_rand_fr(rng) for _ in range(5))
     matrix_a, matrix_b, matrix_c = circuit.to_matrices()
     return generate_parameters_from_matrices(
-        matrix_a, matrix_b, matrix_c, circuit.num_inputs, circuit.num_variables,
+        matrix_a, matrix_b, matrix_c, circuit.r1cs.num_inputs, circuit.r1cs.num_variables,
         alpha, beta, gamma, delta, t, device=device)

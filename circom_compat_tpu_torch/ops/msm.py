@@ -12,16 +12,23 @@ Batching keeps the plain versions' Python op count independent of W and M,
 and gives each kernel launch the work of all windows. The final Horner fold
 over the W window sums is tiny and runs on the host on exact ints, where
 the projective-to-affine inversion happens anyway.
+
+msm_g1 / msm_g2 are the standalone MSMs: one vector of points and scalars,
+the window sums on the card unless the caller names another device, the
+fold on the host.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..device import resolve_device
+from ..refmath import curve as rc
 from . import curve as cv
 from . import curve_kernels as ck
+from . import field as fl
 from . import segments
 
 SCALAR_BITS = 254  # BN254 Fr
@@ -131,3 +138,41 @@ def fold_windows_host(window_pts: List, curve_ops, window_bits: int):
                 acc = curve_ops.double(acc)
         acc = curve_ops.add(acc, window_pts[w])
     return acc
+
+
+def _msm(xy: torch.Tensor, scalars, g2: bool, window_bits: Optional[int], device):
+    """sum_i s_i P_i over affine Montgomery words (zero rows for infinity):
+    the window sums of one bucket reduce on `device`, the Horner fold on the
+    host. scalars: N ints, or (N, 8) int32 canonical words (< r)."""
+    shape = (2, 2, 8) if g2 else (2, 8)
+    if tuple(xy.shape[1:]) != shape:
+        raise ValueError(f"points must be (N, {', '.join(map(str, shape))}) affine words, "
+                         f"not {tuple(xy.shape)}")
+    n = xy.shape[0]
+    if n == 0 or len(scalars) == 0:
+        return None
+    if len(scalars) < n:
+        raise ValueError(f"{len(scalars)} scalars for {n} points")
+    dev = resolve_device(device)
+    if isinstance(scalars, torch.Tensor):
+        sc = scalars[:n].to(dev, torch.int32)
+    else:
+        sc = torch.from_numpy(fl.encode_plain(list(scalars)[:n])).to(dev)
+    if window_bits is None:
+        window_bits = pick_window_bits(n)
+    sums = window_sums([xy.to(dev, torch.int32)], [window_orders(sc, window_bits)],
+                       window_bits)[0]
+    decoded = cv.decode_g2_proj(sums) if g2 else cv.decode_g1_proj(sums)
+    return fold_windows_host(decoded, rc.G2 if g2 else rc.G1, window_bits)
+
+
+def msm_g1(points_xy: torch.Tensor, scalars, window_bits: Optional[int] = None, device=None):
+    """G1 MSM: (N, 2, 8) affine Montgomery words and N scalars -> the affine
+    sum (x, y), or None for infinity or empty input."""
+    return _msm(points_xy, scalars, False, window_bits, device)
+
+
+def msm_g2(points_xy: torch.Tensor, scalars, window_bits: Optional[int] = None, device=None):
+    """G2 MSM: (N, 2, 2, 8) affine Montgomery words and N scalars -> the
+    affine sum ((x0, x1), (y0, y1)), or None."""
+    return _msm(points_xy, scalars, True, window_bits, device)

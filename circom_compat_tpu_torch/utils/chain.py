@@ -7,49 +7,19 @@ domain is k + 2: pick k = 2^m - 2 for a power-of-two domain.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Tuple
-
+from ..circom.circuit import CircomCircuit
+from ..circom.r1cs import R1CS
 from ..constants import R_SCALAR
 
-Row = List[Tuple[int, int]]  # [(value, wire)]
 
-
-@dataclass
-class ChainCircuit:
-    a: List[Row]
-    b: List[Row]
-    c: List[Row]
-    num_inputs: int  # instance variables, the constant wire included
-    witness: List[int]
-
-    @property
-    def num_constraints(self) -> int:
-        return len(self.a)
-
-    @property
-    def num_variables(self) -> int:
-        return len(self.witness)
-
-    def to_matrices(self) -> Tuple[List[Row], List[Row], List[Row]]:
-        """(A, B, C) row lists, the input of the setup (models/setup.py)."""
-        return self.a, self.b, self.c
-
-    def full_assignment(self) -> List[int]:
-        return self.witness
-
-    def get_public_inputs(self) -> List[int]:
-        return self.witness[1 : self.num_inputs]
-
-
-def chain_circuit(k: int = 62, a: int = 3) -> ChainCircuit:
-    ra: List[Row] = [[(1, 2)]]
-    rc: List[Row] = [[(1, 3)]]
-    for i in range(1, k - 1):
-        ra.append([(1, 2 + i)])
-        rc.append([(1, 3 + i)])
-    ra.append([(1, 2 + k - 1)])
-    rc.append([(1, 1)])
+def chain_circuit(k: int = 62, a: int = 3) -> CircomCircuit:
+    """The chain as a witness-attached CircomCircuit (constraints hold
+    (wire, coeff) pairs; to_matrices() gives the (value, wire) rows)."""
+    constraints = [([(2, 1)], [(2, 1)], [(3, 1)])]
+    for w in range(3, k + 1):
+        constraints.append(([(w, 1)], [(w, 1)], [(w + 1, 1)]))
+    last = k + 1
+    constraints.append(([(last, 1)], [(last, 1)], [(1, 1)]))
 
     witness = [1, 0, a] + [0] * (k - 1)
     v = a
@@ -57,5 +27,6 @@ def chain_circuit(k: int = 62, a: int = 3) -> ChainCircuit:
         v = v * v % R_SCALAR
         witness[3 + i] = v
     witness[1] = v * v % R_SCALAR
-    return ChainCircuit(a=ra, b=[list(r) for r in ra], c=rc, num_inputs=2,
-                        witness=witness)
+    r1cs = R1CS(num_inputs=2, num_aux=k, num_variables=k + 2, constraints=constraints,
+                wire_mapping=None)
+    return CircomCircuit(r1cs=r1cs, witness=witness)

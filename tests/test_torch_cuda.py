@@ -1,7 +1,9 @@
 """Card tests: every CUDA kernel of circom_compat_tpu_torch against its plain
 PyTorch version on the same CUDA tensors, word for word, the chain254
-golden proof proved on the card, and setup -> prove -> verify at a 2^13
-domain (the flat NTT chain) on the card.
+golden proof proved on the card, setup -> prove -> verify at a 2^13
+domain (the flat NTT chain) on the card, the standalone msm_g1 / msm_g2 at
+2^12 points against a known-dlog sum, and Groth16.prove of the chain254
+circuit.
 
 They need an NVIDIA GPU and skip without one. On a machine with a card:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider tests/test_torch_cuda.py
@@ -369,14 +371,54 @@ def test_setup_prove_verify_2_13_on_card(cuda):
     from circom_compat_tpu_torch.utils.chain import chain_circuit
 
     c = chain_circuit(k=(1 << 13) - 2, a=5)
-    pk = generate_parameters_from_matrices(c.a, c.b, c.c, c.num_inputs, c.num_variables,
+    ma, mb, mc = c.to_matrices()
+    pk = generate_parameters_from_matrices(ma, mb, mc, c.r1cs.num_inputs, c.r1cs.num_variables,
                                            alpha=11, beta=12, gamma=13, delta=14, t=0xE1,
                                            device=cuda)
-    dpk = gd.DeviceProvingKey.from_matrix_rows(pk, c.a, c.b, c.num_inputs, c.num_constraints,
-                                               device=cuda)
+    dpk = gd.DeviceProvingKey.from_matrix_rows(pk, ma, mb, c.r1cs.num_inputs,
+                                               len(c.r1cs.constraints), device=cuda)
     fk.reset_launches()
     proof = gd.prove_prepared(dpk, 0x1234, 0x5678, c.full_assignment())
     # one fused launch a transform
     assert fk.LAUNCHES["fr_butterfly_stage"] == 6 and fk.LAUNCHES["ntt_rows_mid"] == 0
     assert Groth16.verify_proof(pk.vk, proof, c.get_public_inputs())
     assert not Groth16.verify_proof(pk.vk, proof, [c.get_public_inputs()[0] + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_standalone_msm_known_dlog(cuda, g2):
+    """msm_g1 / msm_g2 at 2^12 points of known discrete logs (a pool of 61,
+    infinity rows included): the sum is (sum_i s_i k_i) G."""
+    from circom_compat_tpu_torch.ops import msm
+
+    grp, gen = (rc.G2, rc.g2_generator()) if g2 else (rc.G1, rc.g1_generator())
+    ks = [RNG.randrange(1, R_SCALAR) for _ in range(61)]
+    pool = [grp.mul(gen, k) for k in ks]
+    n = 1 << 12
+    idx = [RNG.randrange(61) for _ in range(n)]
+    dl = [ks[i] for i in idx]
+    pts = [pool[i] for i in idx]
+    for i in (3, 999, n - 1):
+        pts[i], dl[i] = None, 0
+    sc = [RNG.randrange(R_SCALAR) for _ in range(n)]
+    xy = torch.from_numpy(cv.encode_g2_affine(pts) if g2 else cv.encode_g1_affine(pts)).to(cuda)
+    ck.reset_launches()
+    got = (msm.msm_g2 if g2 else msm.msm_g1)(xy, sc, device=cuda)
+    assert ck.LAUNCHES[f"tile_scan_{'g2' if g2 else 'g1'}"] > 0
+    assert got == grp.mul(gen, sum(s * d for s, d in zip(sc, dl)) % R_SCALAR)
+
+
+@pytest.mark.cuda
+def test_groth16_prove_circuit_on_card(cuda):
+    """Groth16.prove over the chain254 CircomCircuit on the card verifies."""
+    from circom_compat_tpu_torch.circom.zkey import read_zkey
+    from circom_compat_tpu_torch.models.groth16 import Groth16
+    from circom_compat_tpu_torch.utils.chain import chain_circuit
+
+    pk, _ = read_zkey(GOLDEN / "chain254.zkey")
+    circuit = chain_circuit(k=254, a=3)
+    proof = Groth16.prove(pk, circuit)
+    public = circuit.get_public_inputs()
+    assert Groth16.verify_proof(pk.vk, proof, public)
+    assert not Groth16.verify_proof(pk.vk, proof, [(public[0] + 1) % R_SCALAR])

@@ -4,9 +4,14 @@ Window digits, the window-bit choice and the Pippenger window sums of the
 port (all windows of all MSMs over one group in one bucket reduce) are held
 against msm.window_digits, msm.pick_window_bits and
 msm.window_sums_affine_impl (XLA) at about 300 points with w = 8, and the
-folded MSMs against sum_i s_i P_i on the host. Inputs (scalars, points with
-infinity rows, zero scalars) come from a numpy seed and are fed to both
-packages. Tolerance: exact equality of affine group elements.
+folded MSMs against sum_i s_i P_i on the host. The standalone msm_g1 is
+held against the JAX msm_g1 (XLA) at 48 points, with the operands carried
+across by convert.affine_words_from_limbs, and msm_g2 against the JAX
+package's host G2.msm (its XLA msm_g2 rides the slow tier: a two-minute
+build); both give None for empty input and all-zero scalars. Inputs
+(scalars, points with infinity rows, zero scalars) come from a numpy seed
+and are fed to both packages. Tolerance: exact equality of affine group
+elements.
 """
 
 import jax
@@ -18,6 +23,8 @@ import torch
 from circom_compat_tpu.constants import R_SCALAR
 from circom_compat_tpu.ops import curve_jax as cj
 from circom_compat_tpu.ops import msm as jmsm
+from circom_compat_tpu.refmath import curve as jrc
+from circom_compat_tpu_torch import convert
 from circom_compat_tpu_torch.ops import curve as cv
 from circom_compat_tpu_torch.ops import limbs as tl
 from circom_compat_tpu_torch.ops import msm as tmsm
@@ -117,3 +124,63 @@ def test_g2_window_sums_vs_jax():
     xy = _xy(True, pts)
     sums = tmsm.window_sums([xy], [tmsm.window_orders(w, WBITS)], WBITS)[0]
     assert cv.decode_g2_proj(sums) == _jax_window_sums(True, xy, w)
+
+
+def _jax_operands(g2, xy):
+    """The port's affine words as the JAX msm's (x, y) 16-bit limbs."""
+    u16 = np.ascontiguousarray(xy.numpy()).view("<u2")
+    return u16[:, 0].astype(np.uint32), u16[:, 1].astype(np.uint32)
+
+
+def test_msm_g1_vs_jax():
+    grp, pts = _points(False, 48)
+    sc = _scalars(48)
+    xy = _xy(False, pts)
+    jx, jy = _jax_operands(False, xy)
+    assert np.array_equal(convert.affine_words_from_limbs(jx, jy), xy.numpy())
+    got = tmsm.msm_g1(xy, sc, window_bits=5, device="cpu")
+    assert got == jmsm.msm_g1((jnp.asarray(jx), jnp.asarray(jy)), sc, window_bits=5)
+    assert got == grp.msm(pts, sc) and got is not None
+    # a tensor of canonical words gives the same sum; all-zero scalars give None
+    words = torch.from_numpy(tl.ints_to_words(sc))
+    assert tmsm.msm_g1(xy, words, window_bits=5, device="cpu") == got
+    zeros = [0] * 48
+    assert tmsm.msm_g1(xy, zeros, window_bits=5, device="cpu") is None
+    assert jmsm.msm_g1((jnp.asarray(jx), jnp.asarray(jy)), zeros, window_bits=5) is None
+
+
+def test_msm_g2_vs_jax_host():
+    _, pts = _points(True, 24)
+    sc = _scalars(24)
+    xy = _xy(True, pts)
+    jx, jy = _jax_operands(True, xy)
+    assert np.array_equal(convert.affine_words_from_limbs(jx, jy), xy.numpy())
+    got = tmsm.msm_g2(xy, sc, window_bits=4, device="cpu")
+    assert got == jrc.G2.msm(pts, sc) and got is not None
+
+
+@pytest.mark.slow
+def test_msm_g2_vs_jax():
+    """The XLA build of the JAX msm_g2 takes minutes here."""
+    _, pts = _points(True, 24)
+    sc = _scalars(24)
+    xy = _xy(True, pts)
+    jx, jy = _jax_operands(True, xy)
+    assert tmsm.msm_g2(xy, sc, window_bits=4, device="cpu") == \
+        jmsm.msm_g2((jnp.asarray(jx), jnp.asarray(jy)), sc, window_bits=4)
+
+
+def test_msm_empty_and_device_rule(monkeypatch):
+    for g2, fn, jfn in ((False, tmsm.msm_g1, jmsm.msm_g1), (True, tmsm.msm_g2, jmsm.msm_g2)):
+        empty = _xy(g2, [])
+        assert fn(empty, [], device="cpu") is None
+        jx, jy = _jax_operands(g2, empty)
+        assert jfn((jnp.asarray(jx), jnp.asarray(jy)), []) is None
+    _, pts = _points(False, 8)
+    with pytest.raises(ValueError, match="7 scalars for 8 points"):
+        tmsm.msm_g1(_xy(False, pts), list(range(7)), device="cpu")
+    with pytest.raises(ValueError, match="affine words"):
+        tmsm.msm_g2(_xy(False, pts), list(range(8)), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device"):
+        tmsm.msm_g1(_xy(False, pts), list(range(8)))

@@ -79,19 +79,21 @@ def test_witness_map_vs_jax_and_qap(log_n):
     n = 1 << log_n
     c = chain_circuit(k=n - 2, a=int(RNG.integers(2, 1 << 30)))
     asg = c.full_assignment()
-    (ar, ac, av), (br, bc, bv) = _coo(c.a), _coo(c.b)
+    ma, mb, _ = c.to_matrices()
+    n_cons, n_in = len(c.r1cs.constraints), c.r1cs.num_inputs
+    (ar, ac, av), (br, bc, bv) = _coo(ma), _coo(mb)
     plan = tntt.get_plan(n)
     got = tntt.witness_map(plan, torch.from_numpy(ar), torch.from_numpy(ac), _mont_words(av),
                            torch.from_numpy(br), torch.from_numpy(bc), _mont_words(bv),
-                           _mont_words(asg), c.num_constraints, c.num_inputs)
+                           _mont_words(asg), n_cons, n_in)
     got = _canon_plain(got)
     want_jax = jntt.witness_map_impl(
         jntt.get_plan(n), jnp.asarray(ar.astype(np.int32)), jnp.asarray(ac.astype(np.int32)),
         _to_jax(_mont_words(av)), jnp.asarray(br.astype(np.int32)),
         jnp.asarray(bc.astype(np.int32)), _to_jax(_mont_words(bv)), _to_jax(_mont_words(asg)),
-        c.num_constraints, c.num_inputs)
+        n_cons, n_in)
     assert got == _canon_plain(_jax_words(want_jax))
-    assert got == jqap.witness_map_from_matrices(c.a, c.b, c.num_inputs, c.num_constraints, asg)
+    assert got == jqap.witness_map_from_matrices(ma, mb, n_in, n_cons, asg)
 
 
 def test_witness_map_from_ab_vs_jax_non_square():
@@ -110,13 +112,15 @@ def test_witness_map_small_domains_vs_qap(log_n):
     n = 1 << log_n
     c = chain_circuit(k=n - 2, a=3 + log_n)
     asg = c.full_assignment()
-    (ar, ac, av), (br, bc, bv) = _coo(c.a), _coo(c.b)
+    ma, mb, _ = c.to_matrices()
+    n_cons, n_in = len(c.r1cs.constraints), c.r1cs.num_inputs
+    (ar, ac, av), (br, bc, bv) = _coo(ma), _coo(mb)
     got = tntt.witness_map(tntt.get_plan(n), torch.from_numpy(ar), torch.from_numpy(ac),
                            _mont_words(av), torch.from_numpy(br), torch.from_numpy(bc),
-                           _mont_words(bv), _mont_words(asg), c.num_constraints, c.num_inputs)
-    want = tqap.witness_map_from_matrices(c.a, c.b, c.num_inputs, c.num_constraints, asg)
+                           _mont_words(bv), _mont_words(asg), n_cons, n_in)
+    want = tqap.witness_map_from_matrices(ma, mb, n_in, n_cons, asg)
     assert _canon_plain(got) == want
-    assert tqap.domain_size_for(c.num_constraints, c.num_inputs) == n
+    assert tqap.domain_size_for(n_cons, n_in) == n
 
 
 def test_witness_map_plain_ops_match_kernel_set():

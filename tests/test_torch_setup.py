@@ -64,9 +64,11 @@ def jax_key():
 def card_path_key():
     """The setup the card runs, on the CPU (every kernel's plain version)."""
     c = chain_circuit(k=K, a=3)
+    ma, mb, mc = c.to_matrices()
     times = {}
-    pk = models.generate_parameters_from_matrices(c.a, c.b, c.c, c.num_inputs, c.num_variables,
-                                                  device="cpu", stage_times=times, **TOXIC)
+    pk = models.generate_parameters_from_matrices(ma, mb, mc, c.r1cs.num_inputs,
+                                                  c.r1cs.num_variables, device="cpu",
+                                                  stage_times=times, **TOXIC)
     return pk, times
 
 
@@ -208,7 +210,8 @@ def test_write_zkey_matches_jax_writer(jax_key, card_path_key):
     want = io.BytesIO()
     jax_write_zkey(want, jax_key, ma, mb, len(ma))
     got = io.BytesIO()
-    write_zkey(got, pk, c.a, c.b, c.num_constraints)
+    ta, tb, _ = c.to_matrices()
+    write_zkey(got, pk, ta, tb, len(c.r1cs.constraints))
     assert got.getvalue() == want.getvalue()
     got.seek(0)
     back, m = read_zkey(got)
@@ -222,7 +225,8 @@ def test_setup_zkey_prove_verify_on_cpu():
     c = chain_circuit(k=K, a=5)
     pk = models.generate_random_parameters(c, rng=random.Random(7), device="cpu")
     buf = io.BytesIO()
-    write_zkey(buf, pk, c.a, c.b, c.num_constraints)
+    ma, mb, _ = c.to_matrices()
+    write_zkey(buf, pk, ma, mb, len(c.r1cs.constraints))
     buf.seek(0)
     pk2, m = read_zkey(buf)
     proof = Groth16.create_proof_with_reduction_and_matrices(
@@ -236,8 +240,8 @@ def test_setup_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     c = chain_circuit(k=K, a=3)
     with pytest.raises(RuntimeError, match="device"):
-        models.generate_parameters_from_matrices(c.a, c.b, c.c, c.num_inputs, c.num_variables,
-                                                 **TOXIC)
+        models.generate_parameters_from_matrices(*c.to_matrices(), c.r1cs.num_inputs,
+                                                 c.r1cs.num_variables, **TOXIC)
     with pytest.raises(RuntimeError, match="device"):
         models.generate_random_parameters(c)
     assert gd.resolve_device("cpu") == torch.device("cpu")
