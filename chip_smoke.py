@@ -12,7 +12,8 @@ Phases (each passes or raises; nothing is caught):
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the 2^20-domain prove gives it, word for word (max_abs_err 0);
      K6/K7 at 2^20 pairs and at the path's largest general add (Phase C
-     over the level-0 carries: 5,242,880 G1, 1,310,720 G2);
+     over the level-0 carries: 5,242,880 G1, 1,310,720 G2); K3/K4 also at
+     the 2^22 four-step shape (rows of 2048: ccf_ntt_rows_log11);
   3. each kernel's time (CUDA events, warmed up, averaged), its bound and
      the plain version's time; K3/K4's bounds count the butterflies whose
      twiddle is not one, and their rows are also checked and timed at the
@@ -22,12 +23,13 @@ Phases (each passes or raises; nothing is caught):
      device time beside the event time (at 2^13 an event time per call is
      mostly the host's); K2 also at a ragged T;
   4. the main path: a 2^20-domain squaring-chain proof through
-     DeviceProvingKey.from_matrix_rows and prove_prepared, against a
-     synthetic key whose every point has a known discrete log, so the host
-     knows A, B and C exactly; h is also held against the plain witness
-     map run on the card; after the timed proves, one prove under
-     torch.profiler: the top device kernels, the device's idle share and
-     each of the port's kernel families' summed device time and launches;
+     DeviceProvingKey.build and prove_prepared, against a synthetic key
+     whose every point has a known discrete log, so the host knows A, B and
+     C exactly; h is also held against the plain witness map run on the
+     card; one prove under trace.collect must give the prover's trace
+     stages; after the timed proves, one prove under torch.profiler: the
+     top device kernels, the device's idle share and each of the port's
+     kernel families' summed device time and launches;
   5. golden: chain254 proved from tests/golden/chain254.zkey must equal
      tests/golden/chain254_proof.json and verify;
   6. the small-circuit path at a 2^13 domain: setup on the card
@@ -52,17 +54,28 @@ Phases (each passes or raises; nothing is caught):
      served proof verified by pairing; load, staging, warm-up, each
      request's prove_s and the peak device memory;
  10. the CLI at 2^13 (`cli.main`, on the card by default): phase 6's key
-     written to a file; prove (which must launch fr_butterfly_stages),
-     export-vkey, verify (0; 1 for a tampered public input) and
-     export-calldata (the ethereum.Proof tuple);
+     written to a file; prove (which must launch fr_butterfly_stages), prove
+     --backend streamed under --timings (the table must hold
+     prove.msm_stream; the proof must verify), export-vkey, verify (0; 1 for
+     a tampered public input) and export-calldata (the ethereum.Proof tuple);
  11. the standalone msm_g1 / msm_g2 at 2^20 points of known discrete logs
      from phase 4's pools: equal to (sum s_i k_i) G, then points/s (median
-     of 3 after the checked call).
+     of 3 after the checked call);
+ 12. the streamed prover (models/streamed.py; run after phase 8, and its
+     key released before phase 9 stages its own): phase 4's key streamed
+     at three chunks (3 * 2^17, the last padded) and at one must give phase
+     4's resident proof byte for byte; a 2^22 synthetic known-dlog key (past
+     what the resident prover holds) streamed at chunk 2^20 (four chunks)
+     must give the host's A, B, C, and its h the plain witness map; its
+     launches, stage times (median of 3 after the checked prove), each
+     chunk's copy and compute time (CUDA events on the two streams), peak
+     device memory beside phase 4's (at most 1.10 times it), and one
+     profiled prove.
 Phases 2-3 also hold the flat chain's stage kernel (2^10 to 2^13 and 2^20), the Fq
 binary modes (2^20) and the K9 op chain (2^16 elements, K = 64) against
 their plain versions. Each kernel's launches are counted on the path that
 runs it (phase 4, 6 or 7, or 8 for K9), the counts set to 0 just before;
-phases 9-11 count theirs the same way (launches_by_path on the kernels
+phases 9-12 count theirs the same way (launches_by_path on the kernels
 line), and each must launch every kernel of its path.
 The kernels line (JSON; the K6/K7 and K8 entries also carry ptxas's
 registers and spill bytes per mode, the K3/K4 entries each mode's numbers
@@ -87,6 +100,7 @@ import numpy as np
 SEED = 20
 LOG_N = 20
 LOG_SMALL = 13  # phase 6: the largest domain of the flat chain
+LOG_BIG = 22  # phase 12: past what the resident prover holds on an 80 GB card
 K9_N, K9_K = 1 << 16, 64
 POOL = 509  # distinct points (and discrete logs) of the synthetic key
 
@@ -233,21 +247,17 @@ def point_pools(rng):
             [rc.G2.mul(rc.g2_generator(), k) for k in ks])
 
 
-def synthetic_key(k, rng, ks, g1_pool, g2_pool, device):
-    """The squaring chain with k constraints (domain k + 2) and a staged
-    proving key whose every point has a known discrete log: query row i of
-    a section is k_((i + offset) mod POOL) times the generator, three rows
+def synthetic_key(k, rng, ks, g1_pool, g2_pool):
+    """A proving key for the squaring chain with k constraints (domain
+    k + 2) whose every point has a known discrete log: query row i of a
+    section is k_((i + offset) mod POOL) times the generator, three rows
     per section are infinity, and alpha, beta, gamma, delta are seeded.
-    Returns (circuit, its (A, B, C) rows, DeviceProvingKey, the secrets)."""
+    Returns (host ProvingKey, the secrets)."""
     from circom_compat_tpu_torch.circom.zkey import G1Section, G2Section, ProvingKey, VerifyingKey
     from circom_compat_tpu_torch.constants import R_SCALAR
-    from circom_compat_tpu_torch.models import groth16_device as gd
     from circom_compat_tpu_torch.ops import curve as cv
     from circom_compat_tpu_torch.refmath import curve as rc
-    from circom_compat_tpu_torch.utils.chain import chain_circuit
 
-    circuit = chain_circuit(k=k, a=3)
-    rows = circuit.to_matrices()  # once: 3 (k,)-row lists at 2^20
     n_vars, n_pub, n = k + 2, 1, k + 2
     pools = {False: cv.encode_g1_affine(g1_pool).view(np.uint16).reshape(POOL, 2, 16),
              True: cv.encode_g2_affine(g2_pool).view(np.uint16).reshape(POOL, 4, 16)}
@@ -255,7 +265,7 @@ def synthetic_key(k, rng, ks, g1_pool, g2_pool, device):
 
     def section(name, length):
         idx = (np.arange(length) + offsets[name]) % POOL
-        limbs = pools[name == "b2"][idx].copy()
+        limbs = pools[name == "b2"][idx]
         dlogs = [ks[j] for j in idx.tolist()]
         for i in (5, 77, length - 3):
             limbs[i] = 0
@@ -274,10 +284,9 @@ def synthetic_key(k, rng, ks, g1_pool, g2_pool, device):
                     b_g2_query=G2Section(secs["b2"][0]), h_query=G1Section(secs["h"][0]),
                     l_query=G1Section(secs["l"][0]), n_vars=n_vars, n_public=n_pub,
                     domain_size=n)
-    dpk = gd.DeviceProvingKey.from_matrix_rows(pk, rows[0], rows[1], 2, k, device=device)
     secret = dict(alpha=alpha, beta=beta, delta=delta,
                   dlogs={name: sec[1] for name, sec in secs.items()})
-    return circuit, rows, dpk, secret
+    return pk, secret
 
 
 def expected_proof(secret, asg, h_ints, r, s):
@@ -403,8 +412,10 @@ def server_phase(dev, card, work, pk, rows, circuit, asg, rng, on_path, kernels)
 
 
 def cli_phase(card, work, pk, rows, circuit, on_path):
-    """[10] The CLI on its default device: prove, export-vkey, verify (and a
-    tampered public input), export-calldata against the ethereum.Proof tuple."""
+    """[10] The CLI on its default device: prove, then prove --backend
+    streamed under --timings (the stage table must hold prove.msm_stream,
+    the proof must verify), export-vkey, verify (and a tampered public
+    input), export-calldata against the ethereum.Proof tuple."""
     import contextlib
 
     from circom_compat_tpu_torch import cli
@@ -414,7 +425,8 @@ def cli_phase(card, work, pk, rows, circuit, on_path):
     from circom_compat_tpu_torch.constants import R_SCALAR as R
 
     f = {name: str(Path(work) / name) for name in
-         ("small.zkey", "small.wtns", "proof.json", "public.json", "vk.json", "bad.json")}
+         ("small.zkey", "small.wtns", "proof.json", "public.json", "vk.json", "bad.json",
+          "proof_s.json", "public_s.json")}
     write_zkey(f["small.zkey"], pk, rows[0], rows[1], len(circuit.r1cs.constraints))
     write_wtns(circuit.full_assignment(), f["small.wtns"])
     public = circuit.get_public_inputs()
@@ -436,6 +448,24 @@ def cli_phase(card, work, pk, rows, circuit, on_path):
         raise AssertionError("the CLI prove failed")
     print(f"[10] CLI prove at domain {pk.domain_size}: {wall:.4f} s wall (zkey read, staging, "
           f"prove, JSON; {card}); launches: {json.dumps(launches)}")
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        (rc, _), launches = on_path("cli_streamed", ["fr_butterfly_stage", "fr_binary", "fr_tile_scan",
+                                                     "ntt_rows_low", "point_add_g1", "point_add_g2",
+                                                     "tile_scan_g1", "tile_scan_g2"],
+                                    lambda: run(["--timings", "prove", f["small.zkey"], f["small.wtns"],
+                                                 f["proof_s.json"], f["public_s.json"],
+                                                 "--backend", "streamed"]))
+    wall = time.perf_counter() - t0
+    table = err.getvalue()
+    if rc != 0 or "prove.msm_stream" not in table:
+        raise AssertionError(f"the CLI streamed prove failed or printed no prove.msm_stream: {table}")
+    print(f"[10] CLI prove --backend streamed --timings at domain {pk.domain_size}: {wall:.4f} s wall "
+          f"({card}); launches: {json.dumps(launches)}; stage table: "
+          + json.dumps(table.splitlines()[1:]))
+    if run(["verify", f["small.zkey"], f["public_s.json"], f["proof_s.json"]]) != (0, "OK!\n"):
+        raise AssertionError("the CLI's streamed proof does not verify")
     if run(["export-vkey", f["small.zkey"], f["vk.json"]])[0] != 0:
         raise AssertionError("export-vkey failed")
     if json.loads(Path(f["vk.json"]).read_text()) != cli._vk_to_json(pk.vk):
@@ -495,6 +525,101 @@ def msm_phase(dev, card, ks, g1_pool, g2_pool, gen, on_path, n=1 << LOG_N):
         print(f"[11] msm_{tag} of {n} points (window bits {msm.pick_window_bits(n)}; launches "
               f"{json.dumps(launches)}): equals the known-dlog sum; median {med:.4f} s of "
               f"{[round(t, 4) for t in times]}: {n / med:.1f} points/s ({card})")
+
+
+STREAMED_KERNELS = ["fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid", "point_add_g1",
+                    "point_add_g2", "tile_scan_g1", "tile_scan_g2"]
+
+
+def streamed_phase(dev, card, pk, matrices, resident, asg, r, s, rng, ks, g1_pool, g2_pool,
+                   on_path, resident_peak, log_n=LOG_N, log_big=LOG_BIG, big_chunk=1 << 20):
+    """[12] The streamed prover (models/streamed.py). (a) Phase 4's key,
+    assignment and r/s at chunk 3 * 2^(log_n - 3) (three chunks, the last
+    padded) and at chunk 2^log_n (one): each proof equals phase 4's
+    resident proof byte for byte. (b) A 2^log_big synthetic known-dlog key
+    at chunk big_chunk: the proof equals the host's A, B, C and h the plain
+    witness map on the device; the launches (every kernel of the path),
+    the stage times (median of 3 after the checked prove), each chunk's
+    copy and compute time, the peak device memory beside phase 4's (at
+    most 1.10 times it), one profiled prove. The key and its plan's tables
+    are released after."""
+    import torch
+
+    from circom_compat_tpu_torch.models import groth16_device as gd
+    from circom_compat_tpu_torch.models import streamed as sm
+    from circom_compat_tpu_torch.ops import field_kernels as fk
+    from circom_compat_tpu_torch.ops import limbs as lc
+    from circom_compat_tpu_torch.ops import ntt
+    from circom_compat_tpu_torch.utils import trace
+    from circom_compat_tpu_torch.utils.chain import chain_matrices, chain_witness
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    spk = sm.StreamedProvingKey.build(pk, matrices, matrices.num_constraints, device=dev)
+    for chunk in (3 << (log_n - 3), 1 << log_n):
+        spk.chunk_points = chunk
+        t0 = time.perf_counter()
+        got = sm.prove_streamed(spk, r, s, asg)
+        wall = time.perf_counter() - t0
+        if got != resident:
+            raise AssertionError(f"the streamed proof at chunk {chunk} differs from the resident one")
+        print(f"[12] 2^{log_n} streamed at chunk {chunk} ({len(sm.LAST_CHUNK_MS)} chunks on the "
+              f"card): equals phase 4's resident proof byte for byte; {wall:.4f} s (first prove "
+              f"at this chunk; {card})")
+    del spk
+
+    k = (1 << log_big) - 2
+    t0 = time.perf_counter()
+    big_pk, secret = synthetic_key(k, rng, ks, g1_pool, g2_pool)
+    asg_big = chain_witness(k, a=3)
+    spk = sm.StreamedProvingKey.build(big_pk, chain_matrices(k), k, 2, chunk_points=big_chunk,
+                                      device=dev)
+    host_bytes = sum(x.nbytes for x in (*spk.g1_sections, spk.g2_section))
+    print(f"[12] 2^{log_big} synthetic key in {time.perf_counter() - t0:.3f} s (host sections "
+          f"{host_bytes} B; matrices and NTT tables on the device; chunk {big_chunk})")
+    proof, launches = on_path(f"streamed_2^{log_big}", STREAMED_KERNELS,
+                              lambda: sm.prove_streamed(spk, r, s, asg_big))
+    peak = sm.LAST_PEAK_DEVICE_BYTES
+    print(f"[12] launches in one 2^{log_big} streamed prove: {json.dumps(launches)}")
+    walls, stages = [], []
+    for _ in range(3):
+        with trace.collect() as tr:
+            t1 = time.perf_counter()
+            again = sm.prove_streamed(spk, r, s, asg_big)
+            walls.append(time.perf_counter() - t1)
+        stages.append(tr.as_dict())
+        if again != proof:
+            raise AssertionError("a repeated streamed prove gave another proof")
+    print(f"[12] streamed prove at 2^{log_big}: median {statistics.median(walls):.4f} s of "
+          f"{[round(w, 4) for w in walls]} ({card}); stages (median s): " + json.dumps(
+              {k2: round(statistics.median(x[k2] for x in stages), 4) for k2 in stages[0]}))
+    print(f"[12] chunks of the last prove (copy ms, compute ms; CUDA events on the copy and the "
+          f"compute stream): {json.dumps([[round(c, 3), round(m, 3)] for c, m in sm.LAST_CHUNK_MS])}")
+    if cuda:
+        print(f"[12] peak device memory of the 2^{log_big} streamed prove {peak} B = "
+              f"{peak / resident_peak:.4f} x phase 4's resident 2^{LOG_N} peak {resident_peak} B")
+        if peak > 1.10 * resident_peak:  # the chunk, not the key, sets the working set
+            raise AssertionError(f"the 2^{log_big} streamed prove's peak exceeds 1.10 x phase 4's")
+        profile_prove(lambda: sm.prove_streamed(spk, r, s, asg_big), 12, f"2^{log_big} streamed")
+
+    one = torch.tensor(lc.ints_to_words([1])[0], device=dev)
+    asg_mont = fk.fr_to_mont(torch.from_numpy(gd.encode_assignment(asg_big)).to(dev))
+    h = fk.fr_from_mont(spk.matrices.witness_map(asg_mont))
+    h_plain = fk.fr_binary_plain("mul_canon",
+                                 spk.matrices.witness_map(asg_mont, ops=fk.PLAIN), one)
+    if max_abs_err(h, h_plain) != 0:
+        raise AssertionError(f"the 2^{log_big} witness map differs from its plain version")
+    h_ints = lc.words_to_ints(h.cpu().numpy())
+    del asg_mont, h, h_plain
+    if proof != expected_proof(secret, asg_big, h_ints, r, s):
+        raise AssertionError(f"the 2^{log_big} streamed proof differs from the host's known-dlog A, B, C")
+    print(f"[12] the 2^{log_big} streamed proof equals the host's known-dlog A, B, C; h equals the "
+          "plain witness map")
+    del spk
+    ntt.get_plan(1 << log_big).release()
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"[12] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -650,6 +775,23 @@ def main() -> int:
     check("ntt_rows_mid", lambda: fk.ntt_rows(x4, tw_dif=tb["tw2_inv"], mid=mid, tw_dit=tb["tw2_fwd"]),
           lambda: fk.ntt_rows_plain(x4, tw_dif=tb["tw2_inv"], mid=mid, tw_dit=tb["tw2_fwd"]),
           10, 96 * n, MAD * (2 * stages + n), f"{FP}:432", FSRC, " DIF, coset mid, DIT")
+    # the four-step rows at 2^22 (phase 12's domain): rows of n1 = 2^11, the
+    # entry kernel ccf_ntt_rows_log11, low (DIF + pre + post) and mid modes
+    big = 1 << LOG_BIG
+    plan_big = ntt.NTTPlan(big)  # its row tables only: no 2^22 coset tables staged here
+    nb1 = plan_big.n1
+    twb = {inv: torch.from_numpy(plan_big._row_table(nb1, inv)).to(dev) for inv in (True, False)}
+    xb, preb, postb = (lazy_fr(big).reshape(big // nb1, nb1, 8) for _ in range(3))
+    stages_big = row_muls(big // nb1, nb1)
+    check("ntt_rows_low", lambda: fk.ntt_rows(xb, tw_dif=twb[True], pre=preb, post=postb),
+          lambda: fk.ntt_rows_plain(xb, tw_dif=twb[True], pre=preb, post=postb),
+          10, 128 * big, MAD * (stages_big + 2 * big), f"{FP}:387", FSRC,
+          f" DIF, pre + post mul, 2^{LOG_BIG} (rows of {nb1})")
+    check("ntt_rows_mid", lambda: fk.ntt_rows(xb, tw_dif=twb[True], mid=preb, tw_dit=twb[False]),
+          lambda: fk.ntt_rows_plain(xb, tw_dif=twb[True], mid=preb, tw_dit=twb[False]),
+          10, 96 * big, MAD * (2 * stages_big + big), f"{FP}:432", FSRC,
+          f" DIF, coset mid, DIT, 2^{LOG_BIG} (rows of {nb1})")
+    del xb, preb, postb, twb, plan_big
     # the flat chain's rows at 2^13: 16 rows of LOW_BLOCK, DIF and DIT + pre
     # (launch-bound: 16 blocks on 132 SMs)
     small = 1 << LOG_SMALL
@@ -801,8 +943,15 @@ def main() -> int:
     # ---- 4. main path at a 2^20 domain --------------------------------------
     from circom_compat_tpu_torch.models import groth16_device as gd
 
+    from circom_compat_tpu_torch.utils import trace
+    from circom_compat_tpu_torch.utils.chain import chain_circuit, chain_matrices
+
     t0 = time.perf_counter()
-    circuit, rows, dpk, secret = synthetic_key(n - 2, rng, ks, g1_pool, g2_pool, dev)
+    circuit = chain_circuit(k=n - 2, a=3)
+    rows = circuit.to_matrices()  # once: 3 (k,)-row lists at 2^20, for phases 7 and 9
+    pk4, secret = synthetic_key(n - 2, rng, ks, g1_pool, g2_pool)
+    m4 = chain_matrices(n - 2)
+    dpk = gd.DeviceProvingKey.build(pk4, m4, n - 2, 2, device=dev)
     print(f"[4] chain k={n - 2}, n_vars={dpk.n_vars}, domain 2^{LOG_N}: circuit + key staged in "
           f"{time.perf_counter() - t0:.3f} s; staged key {dpk.nbytes()} device bytes")
     wbits = gd.default_window_bits(dpk)
@@ -837,16 +986,26 @@ def main() -> int:
         assert again == proof
     med = statistics.median(totals)
     stage_med = {k2: statistics.median(s[k2] for s in stages_all) for k2 in stages_all[0]}
+    peak4 = torch.cuda.max_memory_allocated()
     print(f"[4] steady-state prove at 2^{LOG_N}: median {med:.4f} s of {totals} "
-          f"({card}); peak device memory {torch.cuda.max_memory_allocated()} B")
+          f"({card}); peak device memory {peak4} B")
     print("[4] stages (median s): " + json.dumps({k2: round(v, 4) for k2, v in stage_med.items()}))
+    with trace.collect() as tr4:
+        gd.prove_prepared(dpk, r_, s_, asg, wbits)
+    names4 = [name for name, _ in tr4.stages]
+    if names4 != ["prove.encode", "prove.witness_map", "prove.msm/sorts", "prove.msm/msm_g1",
+                  "prove.msm/msm_g2", "prove.msm", "prove.assemble/readback",
+                  "prove.assemble/fold", "prove.assemble"]:
+        raise AssertionError(f"the prove's trace stages are {names4}")
+    print("[4] trace stages of one prove (s, each ended by a device sync): "
+          + json.dumps({k2: round(v, 4) for k2, v in tr4.as_dict().items()}))
     profile_prove(lambda: gd.prove_prepared(dpk, r_, s_, asg, wbits), 4, f"2^{LOG_N}")
 
     # h of the port, and the same witness map through the plain versions
     asg_dev = torch.from_numpy(gd.encode_assignment(asg)).to(dev)
     asg_mont = fk.fr_to_mont(asg_dev)
-    h = fk.fr_from_mont(gd.witness_map(dpk, asg_mont))
-    h_plain = fk.fr_binary_plain("mul_canon", gd.witness_map(dpk, asg_mont, ops=fk.PLAIN),
+    h = fk.fr_from_mont(dpk.matrices.witness_map(asg_mont))
+    h_plain = fk.fr_binary_plain("mul_canon", dpk.matrices.witness_map(asg_mont, ops=fk.PLAIN),
                                  torch.tensor(lc.ints_to_words([1])[0], device=dev))
     if max_abs_err(h, h_plain) != 0:
         raise AssertionError("witness map differs from its plain version on the card")
@@ -860,7 +1019,6 @@ def main() -> int:
     # ---- 5. golden ----------------------------------------------------------
     from circom_compat_tpu_torch.circom.zkey import read_zkey
     from circom_compat_tpu_torch.models.groth16 import Groth16
-    from circom_compat_tpu_torch.utils.chain import chain_circuit
 
     golden = Path(__file__).resolve().parent / "tests" / "golden"
     rec = json.loads((golden / "chain254_proof.json").read_text())
@@ -922,8 +1080,9 @@ def main() -> int:
     if launches6["fr_butterfly_stage"] != 6:  # one fused launch a transform
         raise AssertionError(f"the 2^13 prove made {launches6['fr_butterfly_stage']} stage launches, not 6")
     asg6_mont = fk.fr_to_mont(torch.from_numpy(gd.encode_assignment(asg6)).to(dev))
-    h6 = fk.fr_from_mont(gd.witness_map(dpk6, asg6_mont))
-    h6_plain = fk.fr_binary_plain("mul_canon", gd.witness_map(dpk6, asg6_mont, ops=fk.PLAIN),
+    h6 = fk.fr_from_mont(dpk6.matrices.witness_map(asg6_mont))
+    h6_plain = fk.fr_binary_plain("mul_canon",
+                                  dpk6.matrices.witness_map(asg6_mont, ops=fk.PLAIN),
                                   torch.tensor(lc.ints_to_words([1])[0], device=dev))
     if max_abs_err(h6, h6_plain) != 0:
         raise AssertionError("2^13 witness map differs from its plain version on the card")
@@ -1024,6 +1183,9 @@ def main() -> int:
         now = counts()
         path_launches(now, names, path)
         return out, {k2: v for k2, v in now.items() if v}
+
+    streamed_phase(dev, card, pk4, m4, proof, asg, r_, s_, rng, ks, g1_pool, g2_pool, on_path,
+                   peak4)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke") as work:
         server_phase(dev, card, work, pk7, rows, circuit, asg, rng, on_path,

@@ -298,10 +298,13 @@ class BinFile:
 def read_zkey(path_or_reader) -> Tuple[ProvingKey, ConstraintMatrices]:
     """Load a snarkjs .zkey into (ProvingKey, ConstraintMatrices). Paths are
     memory-mapped; the mapping lives as long as the section arrays."""
-    if hasattr(path_or_reader, "read"):
-        binfile = BinFile(path_or_reader)
+    from ..utils import trace
+
+    with trace.stage("zkey.load"):
+        if hasattr(path_or_reader, "read"):
+            binfile = BinFile(path_or_reader)
+            return binfile.proving_key(), binfile.matrices()
+        with open(path_or_reader, "rb") as fh:
+            mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+        binfile = BinFile(mm, buffer=mm)
         return binfile.proving_key(), binfile.matrices()
-    with open(path_or_reader, "rb") as fh:
-        mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
-    binfile = BinFile(mm, buffer=mm)
-    return binfile.proving_key(), binfile.matrices()

@@ -2,9 +2,11 @@
 
   python -m circom_compat_tpu_torch witness <circuit.wasm> <input.json> <out.wtns>
   python -m circom_compat_tpu_torch prove   <circuit.zkey> <witness.wtns> \
-                                            <proof.json> <public.json> [--device cpu]
+                                            <proof.json> <public.json> [--device cpu] \
+                                            [--backend device|streamed]
   python -m circom_compat_tpu_torch fullprove <input.json> <circuit.wasm> <circuit.zkey> \
-                                            <proof.json> <public.json> [--device cpu]
+                                            <proof.json> <public.json> [--device cpu] \
+                                            [--backend device|streamed]
   python -m circom_compat_tpu_torch verify  <verification_key.json> <public.json> <proof.json>
   python -m circom_compat_tpu_torch export-vkey <circuit.zkey> <verification_key.json>
   python -m circom_compat_tpu_torch export-calldata <public.json> <proof.json>
@@ -15,7 +17,10 @@
 
 Commands that prove or set up run on the card unless --device names another
 device (--device cpu: every kernel wrapper's plain version); without a card
-the default raises. proof.json / public.json / verification_key.json match
+the default raises. --backend streamed keeps the key's query sections on the
+host and sends them to the device in chunks (models/streamed.py), for keys
+larger than the card's memory. `--timings` before the command prints the
+stage table of utils/trace.py to stderr when the command finishes. proof.json / public.json / verification_key.json match
 snarkjs's JSON schema (decimal strings, G2 as [[c0,c1],...]).
 """
 
@@ -121,7 +126,7 @@ def _prove_and_write(pk, matrices, assignment, public, args) -> int:
 
     proof = Groth16.create_proof_with_reduction_and_matrices(
         pk, random_scalar(), random_scalar(), matrices, matrices.num_instance_variables,
-        matrices.num_constraints, assignment, device=args.device)
+        matrices.num_constraints, assignment, device=args.device, backend=args.backend)
     _dump_json(_proof_to_json(proof), args.proof)
     _dump_json([str(v) for v in public], args.public)
     print(f"wrote {args.proof}, {args.public}")
@@ -297,8 +302,17 @@ def _device_option(p) -> None:
                         "kernels' plain versions)")
 
 
+def _backend_option(p) -> None:
+    p.add_argument("--backend", default="device", choices=("device", "streamed"),
+                   help="device: the key staged whole; streamed: the query sections sent "
+                        "to the device in chunks")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="circom_compat_tpu_torch")
+    ap.add_argument("--timings", action="store_true",
+                    help="print a per-stage wall-clock table to stderr when the command "
+                         "finishes (utils/trace.py)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     w = sub.add_parser("witness", help="run the WASM witness generator")
@@ -314,6 +328,7 @@ def main(argv=None) -> int:
     p.add_argument("proof")
     p.add_argument("public")
     _device_option(p)
+    _backend_option(p)
     p.set_defaults(fn=cmd_prove)
 
     fp = sub.add_parser("fullprove", help="witness + prove in one step (snarkjs fullprove)")
@@ -324,6 +339,7 @@ def main(argv=None) -> int:
     fp.add_argument("public")
     fp.add_argument("--sanity-check", action="store_true")
     _device_option(fp)
+    _backend_option(fp)
     fp.set_defaults(fn=cmd_fullprove)
 
     ec = sub.add_parser("export-calldata", help="proof + public -> Solidity verifyProof "
@@ -373,6 +389,14 @@ def main(argv=None) -> int:
     pc.set_defaults(fn=cmd_prove_client)
 
     args = ap.parse_args(argv)
+    if args.timings:
+        from .utils import trace
+
+        with trace.collect() as tr:
+            rc = args.fn(args)
+        print("--- stage timings ---", file=sys.stderr)
+        print(tr.table(), file=sys.stderr)
+        return rc
     return args.fn(args)
 
 

@@ -1,5 +1,5 @@
-"""Prover and setup: device proving key, prove core, the Groth16 facade and
-the trusted setup."""
+"""Prover and setup: device proving key, prove core, the streamed prover,
+the Groth16 facade and the trusted setup."""
 
 from .groth16 import Groth16, Proof  # noqa: F401
 from .setup import (  # noqa: F401
@@ -7,3 +7,4 @@ from .setup import (  # noqa: F401
     generate_parameters_from_matrices,
     generate_random_parameters,
 )
+from .streamed import StreamedProvingKey, prove_streamed  # noqa: F401

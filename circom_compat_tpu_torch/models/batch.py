@@ -89,7 +89,7 @@ class BatchProver:
         def drain_one():
             i, w, (g1, g2, _) = pending.get()
             r, s = rs[i]
-            proof = gd.assemble_proof(dpk, r, s, g1.cpu().numpy(), g2.cpu().numpy(), wb)
+            proof = gd.assemble_proof(dpk.pk, r, s, g1.cpu().numpy(), g2.cpu().numpy(), wb)
             results[i] = BatchResult(
                 proof=proof, public_inputs=[v % R_SCALAR for v in w[1 : dpk.num_inputs]],
                 witness=list(w) if self.keep_witness else None)

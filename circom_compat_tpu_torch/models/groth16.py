@@ -1,7 +1,9 @@
 """Groth16 facade: prove on the card, verify on the host.
 
-The prover is models/groth16_device.py: `Groth16.prove` takes a
-witness-attached CircomCircuit and fresh randomizers,
+The prover is models/groth16_device.py (backend="device", the key staged
+whole) or models/streamed.py (backend="streamed", the query sections sent
+to the card in chunks): `Groth16.prove` takes a witness-attached
+CircomCircuit and fresh randomizers,
 `create_proof_with_reduction_and_matrices` explicit ones. Verification is
 one pairing product against the processed verifying key, on the host
 (refmath); it is O(1) per proof. Proof and verifying-key points are range-,
@@ -14,10 +16,11 @@ import os
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
-from ..circom.zkey import ProvingKey, VerifyingKey
+from ..circom.zkey import ConstraintMatrices, ProvingKey, VerifyingKey
 from ..constants import Q, R_SCALAR
 from ..refmath import curve, pairing
 from ..refmath.field import FQ12
+from ..utils import trace
 
 
 @dataclass
@@ -97,17 +100,20 @@ def verify_with_processed_vk(pvk: PreparedVerifyingKey, public_inputs: Sequence[
                              proof: Proof) -> bool:
     """e(A, B) == e(alpha, beta) * e(IC(x), gamma) * e(C, delta). A
     malformed proof point gives False, not an undefined pairing value."""
-    if not validate_proof(proof):
-        return False
-    ic = pvk.vk.gamma_abc_g1
-    if len(public_inputs) + 1 != len(ic):
-        raise ValueError("public input length mismatch")
-    acc = ic[0]
-    for x, base in zip(public_inputs, ic[1:]):
-        acc = curve.G1.add(acc, curve.G1.mul(base, x % R_SCALAR))
-    f = pairing.multi_pairing(
-        [(proof.a, proof.b), (acc, pvk.gamma_neg), (proof.c, pvk.delta_neg)])
-    return f == pvk.alpha_beta
+    with trace.stage("verify"):
+        if not validate_proof(proof):
+            return False
+        ic = pvk.vk.gamma_abc_g1
+        if len(public_inputs) + 1 != len(ic):
+            raise ValueError("public input length mismatch")
+        with trace.stage("ic_msm"):
+            acc = ic[0]
+            for x, base in zip(public_inputs, ic[1:]):
+                acc = curve.G1.add(acc, curve.G1.mul(base, x % R_SCALAR))
+        with trace.stage("pairing"):
+            f = pairing.multi_pairing(
+                [(proof.a, proof.b), (acc, pvk.gamma_neg), (proof.c, pvk.delta_neg)])
+        return f == pvk.alpha_beta
 
 
 def verify_proof(vk: VerifyingKey, proof: Proof, public_inputs: Sequence[int]) -> bool:
@@ -119,26 +125,47 @@ prepare_verifying_key = process_vk
 verify_with_prepared = verify_with_processed_vk
 
 
+def _prove(pk: ProvingKey, r: int, s: int, matrices, num_inputs: int, num_constraints: int,
+           full_assignment, device, backend: str) -> Proof:
+    """One prove on `backend`: "device" stages the whole key on the device
+    (models/groth16_device.py), "streamed" keeps the query sections on the
+    host and sends them in chunks (models/streamed.py), for keys larger
+    than the card's memory. Both give the same proof."""
+    from . import groth16_device
+
+    if backend == "device":
+        return groth16_device.prove(pk, r, s, matrices, num_inputs, num_constraints,
+                                    full_assignment, device=device)
+    if backend != "streamed":
+        raise ValueError(f"backend must be 'device' or 'streamed', not {backend!r}")
+    from .streamed import StreamedProvingKey, prove_streamed
+
+    if not isinstance(matrices, ConstraintMatrices):
+        matrices = groth16_device.matrices_from_rows(matrices.a, matrices.b, num_inputs,
+                                                     num_constraints, pk.n_vars)
+    spk = StreamedProvingKey.build(pk, matrices, num_constraints, num_inputs, device=device)
+    return prove_streamed(spk, r, s, full_assignment)
+
+
 class Groth16:
     @staticmethod
     def create_proof_with_reduction_and_matrices(
         pk: ProvingKey, r: int, s: int, matrices, num_inputs: int, num_constraints: int,
-        full_assignment: Sequence[int], device=None,
+        full_assignment: Sequence[int], device=None, backend: str = "device",
     ) -> Proof:
         """Deterministic prove with explicit randomizers r, s, on the card
-        unless device names another (device="cpu": the plain versions)."""
-        from . import groth16_device
-
-        return groth16_device.prove(pk, r, s, matrices, num_inputs, num_constraints,
-                                    full_assignment, device=device)
+        unless device names another (device="cpu": the plain versions);
+        backend "device" (the key staged whole) or "streamed" (the query
+        sections sent in chunks)."""
+        return _prove(pk, r, s, matrices, num_inputs, num_constraints, full_assignment,
+                      device, backend)
 
     @staticmethod
-    def prove(pk: ProvingKey, circuit, rng=None, device=None) -> Proof:
+    def prove(pk: ProvingKey, circuit, rng=None, device=None, backend: str = "device") -> Proof:
         """Randomized prove over a witness-attached CircomCircuit (reference:
         Groth16::prove at src/zkey.rs:866): fresh r, s from random_scalar,
-        the prove on the card unless `device` names another."""
-        from . import groth16_device
-
+        the prove on the card unless `device` names another, on `backend`
+        as create_proof_with_reduction_and_matrices."""
         r, s = random_scalar(rng), random_scalar(rng)
         matrix_a, matrix_b, _ = circuit.to_matrices()
 
@@ -146,9 +173,8 @@ class Groth16:
             a = matrix_a
             b = matrix_b
 
-        return groth16_device.prove(pk, r, s, _Rows, circuit.r1cs.num_inputs,
-                                    len(circuit.r1cs.constraints), circuit.full_assignment(),
-                                    device=device)
+        return _prove(pk, r, s, _Rows, circuit.r1cs.num_inputs, len(circuit.r1cs.constraints),
+                      circuit.full_assignment(), device, backend)
 
     process_vk = staticmethod(process_vk)
     verify_with_processed_vk = staticmethod(verify_with_processed_vk)

@@ -17,7 +17,6 @@ where the kernel wrappers run their plain versions.
 
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence
@@ -35,6 +34,7 @@ from ..ops import limbs as limb_codec
 from ..ops import msm as msm_ops
 from ..ops import ntt
 from ..refmath import curve as rc
+from ..utils import trace
 from .groth16 import Proof
 
 
@@ -52,18 +52,14 @@ def _sorted_coo(rows, cols, vals_mont_u16, device):
 
 
 @dataclass
-class DeviceProvingKey:
-    """The proving key's query sections and sorted A/B matrices, staged on
-    one device as Montgomery words: G1 sections (n, 2, 8), B2 (n, 2, 2, 8),
-    matrix values (nnz, 8). The host ProvingKey keeps the vk and the few
-    single points the r/s algebra needs."""
+class DeviceMatrices:
+    """What the witness map reads, on one device: the A/B matrices as COO
+    sorted by row, values as Montgomery words (nnz, 8), with the NTT plan's
+    tables for `domain_size` staged beside them."""
 
-    pk: ProvingKey
     num_inputs: int
     num_constraints: int
     domain_size: int
-    n_vars: int
-    aux_len: int
     device: torch.device
     a_rows: torch.Tensor
     a_cols: torch.Tensor
@@ -71,12 +67,61 @@ class DeviceProvingKey:
     b_rows: torch.Tensor
     b_cols: torch.Tensor
     b_vals: torch.Tensor
+
+    @staticmethod
+    def stage(matrices: ConstraintMatrices, num_constraints: int, num_inputs: int,
+              domain_size: int, device: torch.device) -> "DeviceMatrices":
+        ar, ac, av = _sorted_coo(matrices.a_rows, matrices.a_cols, matrices.a_values_mont, device)
+        br, bc, bv = _sorted_coo(matrices.b_rows, matrices.b_cols, matrices.b_values_mont, device)
+        ntt.get_plan(domain_size).tables(device)
+        return DeviceMatrices(num_inputs, num_constraints, domain_size, device,
+                              ar, ac, av, br, bc, bv)
+
+    def witness_map(self, asg_mont: torch.Tensor, ops=fk.KERNELS) -> torch.Tensor:
+        """HZ (lazy Montgomery) for an assignment in Montgomery form."""
+        return ntt.witness_map(
+            ntt.get_plan(self.domain_size), self.a_rows, self.a_cols, self.a_vals,
+            self.b_rows, self.b_cols, self.b_vals, asg_mont, self.num_constraints,
+            self.num_inputs, ops)
+
+    def nbytes(self) -> int:
+        """Device bytes of the matrices and the NTT tables."""
+        tensors = [self.a_rows, self.a_cols, self.a_vals, self.b_rows, self.b_cols, self.b_vals,
+                   *ntt.get_plan(self.domain_size).tables(self.device).values()]
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@dataclass
+class DeviceProvingKey:
+    """The proving key's query sections and the witness map's matrices,
+    staged on one device as Montgomery words: G1 sections (n, 2, 8), B2
+    (n, 2, 2, 8). The host ProvingKey keeps the vk and the few single
+    points the r/s algebra needs."""
+
+    pk: ProvingKey
+    n_vars: int
+    aux_len: int
+    device: torch.device
+    matrices: DeviceMatrices
     queries: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+    @property
+    def num_inputs(self) -> int:
+        return self.matrices.num_inputs
+
+    @property
+    def domain_size(self) -> int:
+        return self.matrices.domain_size
 
     @staticmethod
     def build(pk: ProvingKey, matrices, num_constraints: int,
               num_inputs: Optional[int] = None, device=None) -> "DeviceProvingKey":
         dev = resolve_device(device)
+        with trace.stage("key.stage", dev):
+            return DeviceProvingKey._build(pk, matrices, num_constraints, num_inputs, dev)
+
+    @staticmethod
+    def _build(pk, matrices, num_constraints, num_inputs, dev) -> "DeviceProvingKey":
         if num_inputs is None:
             num_inputs = matrices.num_instance_variables
         n = pk.n_vars
@@ -89,12 +134,10 @@ class DeviceProvingKey:
         }
         queries["b2"] = _to_device(
             limb_codec.words_view(pk.b_g2_query.limbs).reshape(n, 2, 2, 8), dev)
-        ar, ac, av = _sorted_coo(matrices.a_rows, matrices.a_cols, matrices.a_values_mont, dev)
-        br, bc, bv = _sorted_coo(matrices.b_rows, matrices.b_cols, matrices.b_values_mont, dev)
         return DeviceProvingKey(
-            pk=pk, num_inputs=num_inputs, num_constraints=num_constraints,
-            domain_size=pk.domain_size, n_vars=n, aux_len=len(pk.l_query), device=dev,
-            a_rows=ar, a_cols=ac, a_vals=av, b_rows=br, b_cols=bc, b_vals=bv,
+            pk=pk, n_vars=n, aux_len=len(pk.l_query), device=dev,
+            matrices=DeviceMatrices.stage(matrices, num_constraints, num_inputs,
+                                          pk.domain_size, dev),
             queries=queries,
         )
 
@@ -102,93 +145,90 @@ class DeviceProvingKey:
     def from_matrix_rows(pk: ProvingKey, rows_a, rows_b, num_inputs: int,
                          num_constraints: int, device=None) -> "DeviceProvingKey":
         """Build from [(value, signal)] row lists (circuit-derived matrices)."""
-
-        def coo(rows_list):
-            rows, cols, vals = [], [], []
-            for ri, entries in enumerate(rows_list):
-                for v, sig in entries:
-                    rows.append(ri)
-                    cols.append(sig)
-                    vals.append((v << 256) % R_SCALAR)
-            return (np.array(rows, np.int64), np.array(cols, np.int64),
-                    limb_codec.ints_to_limbs(vals, dtype=np.uint16).reshape(-1, 16))
-
-        ar, ac, av = coo(rows_a)
-        br, bc, bv = coo(rows_b)
-        matrices = ConstraintMatrices(
-            num_instance_variables=num_inputs,
-            num_witness_variables=pk.n_vars - num_inputs + 1,
-            num_constraints=num_constraints,
-            a_rows=ar, a_cols=ac, a_values_mont=av,
-            b_rows=br, b_cols=bc, b_values_mont=bv,
-        )
+        matrices = matrices_from_rows(rows_a, rows_b, num_inputs, num_constraints, pk.n_vars)
         return DeviceProvingKey.build(pk, matrices, num_constraints, num_inputs, device)
 
     def nbytes(self) -> int:
         """Device bytes of the staged key (queries, matrices, NTT tables)."""
-        tensors = [self.a_rows, self.a_cols, self.a_vals, self.b_rows, self.b_cols,
-                   self.b_vals, *self.queries.values()]
-        tables = ntt.get_plan(self.domain_size).tables(self.device).values()
-        return sum(t.numel() * t.element_size() for t in [*tensors, *tables])
+        return self.matrices.nbytes() + sum(t.numel() * t.element_size()
+                                            for t in self.queries.values())
+
+
+def matrices_from_rows(rows_a, rows_b, num_inputs: int, num_constraints: int,
+                       n_vars: int) -> ConstraintMatrices:
+    """[(value, signal)] row lists -> ConstraintMatrices (COO, Montgomery
+    value limbs), as a zkey would hold them."""
+
+    def coo(rows_list):
+        rows, cols, vals = [], [], []
+        for ri, entries in enumerate(rows_list):
+            for v, sig in entries:
+                rows.append(ri)
+                cols.append(sig)
+                vals.append((v << 256) % R_SCALAR)
+        return (np.array(rows, np.int64), np.array(cols, np.int64),
+                limb_codec.ints_to_limbs(vals, dtype=np.uint16).reshape(-1, 16))
+
+    ar, ac, av = coo(rows_a)
+    br, bc, bv = coo(rows_b)
+    return ConstraintMatrices(
+        num_instance_variables=num_inputs,
+        num_witness_variables=n_vars - num_inputs + 1,
+        num_constraints=num_constraints,
+        a_rows=ar, a_cols=ac, a_values_mont=av,
+        b_rows=br, b_cols=bc, b_values_mont=bv,
+    )
 
 
 def default_window_bits(dpk: DeviceProvingKey) -> int:
     return msm_ops.pick_window_bits(max(dpk.n_vars, dpk.domain_size))
 
 
-class _Stages:
-    """Optional per-stage wall times: each stage ends in a device sync."""
-
-    def __init__(self, times: Optional[dict], device: torch.device):
-        self.times = times
-        self.device = device
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextmanager
-    def __call__(self, name: str):
-        if self.times is None:
-            yield
-            return
-        self._sync()
-        t0 = time.perf_counter()
+@contextmanager
+def timed_stages(times: Optional[dict], keys: Dict[str, str]):
+    """Collect the block's trace stages; when `times` is a dict, add the
+    wall seconds of each stage whose leaf name `keys` maps to a key into
+    times[key]. A collected stage on a CUDA device is ended by a device
+    sync (utils/trace.py), so each time is its stage's own work."""
+    if times is None:
         yield
-        self._sync()
-        self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
+        return
+    with trace.collect() as tr:
+        yield
+    for path, seconds in tr.stages:
+        key = keys.get(path.rsplit("/", 1)[-1])
+        if key is not None:
+            times[key] = times.get(key, 0.0) + seconds
 
 
-def witness_map(dpk: DeviceProvingKey, asg_mont: torch.Tensor, ops=fk.KERNELS) -> torch.Tensor:
-    """HZ (lazy Montgomery) for an assignment in Montgomery form."""
-    return ntt.witness_map(
-        ntt.get_plan(dpk.domain_size), dpk.a_rows, dpk.a_cols, dpk.a_vals,
-        dpk.b_rows, dpk.b_cols, dpk.b_vals, asg_mont, dpk.num_constraints,
-        dpk.num_inputs, ops)
+# prove_prepared's stage_times keys, by trace leaf name
+_PROVE_KEYS = {"prove.encode": "encode", "prove.witness_map": "witness_map", "sorts": "sorts",
+               "msm_g1": "msm_g1", "msm_g2": "msm_g2", "readback": "readback",
+               "fold": "assemble"}
 
 
-def prove_core(dpk: DeviceProvingKey, asg_plain: torch.Tensor, window_bits: int,
-               stage=None):
+def prove_core(dpk: DeviceProvingKey, asg_plain: torch.Tensor, window_bits: int):
     """(n_vars, 8) canonical assignment words on the key's device ->
     (G1 window sums (4, W, 3, 8) for [A, B1, L, H], G2 sums (W, 3, 2, 8), h)."""
-    stage = stage or _Stages(None, dpk.device)
-    with stage("witness_map"):
-        h = fk.fr_from_mont(witness_map(dpk, fk.fr_to_mont(asg_plain)))
-    with stage("sorts"):
-        q = dpk.queries
-        sort_a = msm_ops.window_orders(asg_plain, window_bits)
-        sort_l = msm_ops.window_orders(
-            asg_plain[dpk.num_inputs : dpk.num_inputs + dpk.aux_len], window_bits)
-        sort_h = msm_ops.window_orders(h[: len(q["h"])], window_bits)
-    with stage("msm_g1"):
-        g1 = msm_ops.window_sums([q["a"], q["b1"], q["l"], q["h"]],
-                                 [sort_a, sort_a, sort_l, sort_h], window_bits)
-    with stage("msm_g2"):
-        g2 = msm_ops.window_sums([q["b2"]], [sort_a], window_bits)[0]
+    dev = dpk.device
+    with trace.stage("prove.witness_map", dev):
+        h = fk.fr_from_mont(dpk.matrices.witness_map(fk.fr_to_mont(asg_plain)))
+    with trace.stage("prove.msm", dev):
+        with trace.stage("sorts", dev):
+            q = dpk.queries
+            sort_a = msm_ops.window_orders(asg_plain, window_bits)
+            sort_l = msm_ops.window_orders(
+                asg_plain[dpk.num_inputs : dpk.num_inputs + dpk.aux_len], window_bits)
+            sort_h = msm_ops.window_orders(h[: len(q["h"])], window_bits)
+        with trace.stage("msm_g1", dev):
+            g1 = msm_ops.window_sums([q["a"], q["b1"], q["l"], q["h"]],
+                                     [sort_a, sort_a, sort_l, sort_h], window_bits)
+        with trace.stage("msm_g2", dev):
+            g2 = msm_ops.window_sums([q["b2"]], [sort_a], window_bits)[0]
     return g1, g2, h
 
 
-def assemble_proof(dpk: DeviceProvingKey, r: int, s: int, g1_sums, g2_sums,
+def assemble_proof(pk: ProvingKey, r: int, s: int, g1_sums, g2_sums,
                    window_bits: int) -> Proof:
     """Host: decode the window sums, Horner-fold, apply the r/s algebra."""
     g1o, g2o = rc.G1, rc.G2
@@ -197,7 +237,6 @@ def assemble_proof(dpk: DeviceProvingKey, r: int, s: int, g1_sums, g2_sums,
         for i in range(4)
     )
     g_b2_msm = msm_ops.fold_windows_host(cv.decode_g2_proj(g2_sums), g2o, window_bits)
-    pk = dpk.pk
     g_a = g1o.add(g1o.add(g_a_msm, pk.vk.alpha_g1), g1o.mul(pk.delta_g1, r))
     g_b1 = g1o.add(g1o.add(g_b1_msm, pk.beta_g1), g1o.mul(pk.delta_g1, s))
     g_b2 = g2o.add(g2o.add(g_b2_msm, pk.vk.beta_g2), g2o.mul(pk.vk.delta_g2, s))
@@ -228,19 +267,24 @@ def encode_assignment(full_assignment) -> np.ndarray:
 def prove_prepared(dpk: DeviceProvingKey, r: int, s: int, full_assignment: Sequence[int],
                    window_bits: Optional[int] = None,
                    stage_times: Optional[dict] = None) -> Proof:
-    """Prove with a staged key. stage_times, when a dict, receives the wall
-    seconds of each stage (encode, witness_map, sorts, msm_g1, msm_g2,
-    readback, assemble), each ended by a device sync."""
+    """Prove with a staged key. Its stages go to the active trace
+    collectors (prove.encode, prove.witness_map, prove.msm with sorts,
+    msm_g1 and msm_g2 nested, prove.assemble with readback and fold).
+    stage_times, when a dict, receives the wall seconds of each stage
+    (encode, witness_map, sorts, msm_g1, msm_g2, readback, assemble), each
+    ended by a device sync."""
     if window_bits is None:
         window_bits = default_window_bits(dpk)
-    stage = _Stages(stage_times, dpk.device)
-    with stage("encode"):
-        asg = _to_device(encode_assignment(full_assignment), dpk.device)
-    g1, g2, _ = prove_core(dpk, asg, window_bits, stage)
-    with stage("readback"):
-        g1, g2 = g1.cpu().numpy(), g2.cpu().numpy()
-    with stage("assemble"):
-        return assemble_proof(dpk, r, s, g1, g2, window_bits)
+    dev = dpk.device
+    with timed_stages(stage_times, _PROVE_KEYS):
+        with trace.stage("prove.encode", dev):
+            asg = _to_device(encode_assignment(full_assignment), dev)
+        g1, g2, _ = prove_core(dpk, asg, window_bits)
+        with trace.stage("prove.assemble", dev):
+            with trace.stage("readback", dev):
+                g1, g2 = g1.cpu().numpy(), g2.cpu().numpy()
+            with trace.stage("fold", dev):
+                return assemble_proof(dpk.pk, r, s, g1, g2, window_bits)
 
 
 def prove(pk: ProvingKey, r: int, s: int, matrices, num_inputs: int, num_constraints: int,

@@ -40,7 +40,8 @@ from ..ops import field_kernels as fk
 from ..ops import fixed_base as fb
 from ..ops import limbs as limb_codec
 from ..refmath import curve as rc
-from .groth16_device import _Stages
+from ..utils import trace
+from .groth16_device import timed_stages
 
 Rows = List[List[Tuple[int, int]]]
 ONCURVE_BLOCK = 1 << 22
@@ -287,6 +288,11 @@ def _section(words: torch.Tensor, g2: bool):
     return G1Section(limbs.reshape(-1, 2, 16))
 
 
+# generate_parameters_from_matrices's stage_times keys, by trace leaf name
+_SETUP_KEYS = {f"setup.{k}": k for k in ("instance_map", "encode", "g1_fold", "h_scalars",
+                                         "g2_fold", "readback", "selfcheck")}
+
+
 def generate_parameters_from_matrices(
     matrix_a: Rows, matrix_b: Rows, matrix_c: Rows, num_inputs: int, num_vars: int,
     alpha: int, beta: int, gamma: int, delta: int, t: int, device=None,
@@ -295,44 +301,45 @@ def generate_parameters_from_matrices(
     """Setup for real circuit sizes, on the card unless `device` names
     another: the generator multiples as fixed-base folds, the H scalars in
     closed form, then the self-check of every section. The same toxic waste
-    gives the same key as generate_parameters, byte for byte. stage_times,
-    when a dict, receives the wall seconds of each stage (instance_map,
-    encode, g1_fold, h_scalars, g2_fold, readback, selfcheck), each ended by
-    a device sync."""
+    gives the same key as generate_parameters, byte for byte. Its stages go
+    to the active trace collectors as setup.<stage>; stage_times, when a
+    dict, receives the wall seconds of each stage (instance_map, encode,
+    g1_fold, h_scalars, g2_fold, readback, selfcheck), each ended by a
+    device sync."""
     dev = resolve_device(device)
-    stage = _Stages(stage_times, dev)
-    with stage("instance_map"):
-        domain_size = qap.domain_size_for(len(matrix_a), num_inputs)
-        a_t, b_t, c_t, _zt = qap_instance_map(matrix_a, matrix_b, matrix_c, num_inputs,
-                                              num_vars, t)
-        gamma_inv = pow(gamma, -1, R_SCALAR)
-        delta_inv = pow(delta, -1, R_SCALAR)
-        combined = [(beta * a_t[i] + alpha * b_t[i] + c_t[i]) % R_SCALAR
-                    for i in range(num_vars)]
-        scalars = {
-            "ic": [combined[i] * gamma_inv % R_SCALAR for i in range(num_inputs)],
-            "l_query": [combined[i] * delta_inv % R_SCALAR for i in range(num_inputs, num_vars)],
-            "a_query": a_t,
-            "b_g1_query": b_t,
-        }
-    with stage("encode"):
-        words = {k: torch.from_numpy(fl.encode_plain(v)).to(dev) for k, v in scalars.items()}
-    with stage("g1_fold"):
-        points = {k: fb.fixed_base_points_from_words(w) for k, w in words.items()}
-    with stage("h_scalars"):
-        h_words = _h_scalar_words(domain_size, t, delta_inv, dev)
-    with stage("g1_fold"):
-        points["h_query"] = fb.fixed_base_points_from_words(h_words)
-    with stage("g2_fold"):
-        points["b_g2_query"] = fb.fixed_base_points_from_words(words["b_g1_query"], g2=True)
-    del words, h_words
-    with stage("readback"):
-        secs = {k: _section(p, k == "b_g2_query") for k, p in points.items()}
-    del points
-    with stage("selfcheck"):
-        for name, sec in secs.items():
-            known = scalars["b_g1_query"] if name == "b_g2_query" else scalars.get(name)
-            _selfcheck_section(name, sec, known, g2=name == "b_g2_query", device=dev)
+    with timed_stages(stage_times, _SETUP_KEYS):
+        with trace.stage("setup.instance_map", dev):
+            domain_size = qap.domain_size_for(len(matrix_a), num_inputs)
+            a_t, b_t, c_t, _zt = qap_instance_map(matrix_a, matrix_b, matrix_c, num_inputs,
+                                                  num_vars, t)
+            gamma_inv = pow(gamma, -1, R_SCALAR)
+            delta_inv = pow(delta, -1, R_SCALAR)
+            combined = [(beta * a_t[i] + alpha * b_t[i] + c_t[i]) % R_SCALAR
+                        for i in range(num_vars)]
+            scalars = {
+                "ic": [combined[i] * gamma_inv % R_SCALAR for i in range(num_inputs)],
+                "l_query": [combined[i] * delta_inv % R_SCALAR for i in range(num_inputs, num_vars)],
+                "a_query": a_t,
+                "b_g1_query": b_t,
+            }
+        with trace.stage("setup.encode", dev):
+            words = {k: torch.from_numpy(fl.encode_plain(v)).to(dev) for k, v in scalars.items()}
+        with trace.stage("setup.g1_fold", dev):
+            points = {k: fb.fixed_base_points_from_words(w) for k, w in words.items()}
+        with trace.stage("setup.h_scalars", dev):
+            h_words = _h_scalar_words(domain_size, t, delta_inv, dev)
+        with trace.stage("setup.g1_fold", dev):
+            points["h_query"] = fb.fixed_base_points_from_words(h_words)
+        with trace.stage("setup.g2_fold", dev):
+            points["b_g2_query"] = fb.fixed_base_points_from_words(words["b_g1_query"], g2=True)
+        del words, h_words
+        with trace.stage("setup.readback", dev):
+            secs = {k: _section(p, k == "b_g2_query") for k, p in points.items()}
+        del points
+        with trace.stage("setup.selfcheck", dev):
+            for name, sec in secs.items():
+                known = scalars["b_g1_query"] if name == "b_g2_query" else scalars.get(name)
+                _selfcheck_section(name, sec, known, g2=name == "b_g2_query", device=dev)
 
     g1mul = rc.FixedBaseLadder(rc.G1, rc.g1_generator()).mul
     g2mul = rc.FixedBaseLadder(rc.G2, rc.g2_generator()).mul

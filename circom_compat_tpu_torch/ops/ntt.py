@@ -156,6 +156,10 @@ class NTTPlan:
                                  for k, v in self.host_tables(chain).items()}
         return self._staged[key]
 
+    def release(self) -> None:
+        """Drop the tables staged on devices; `tables` stages them again."""
+        self._staged.clear()
+
 
 @lru_cache(maxsize=4)
 def get_plan(n: int) -> NTTPlan:

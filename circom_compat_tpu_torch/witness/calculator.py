@@ -19,6 +19,7 @@ import sys
 from typing import Dict, Iterable, List, Sequence, Union
 
 from ..constants import R_SCALAR
+from ..utils import trace
 from .fnv import fnv
 from .memory import SafeMemory
 from .wasm.interp import Instance, Memory
@@ -134,9 +135,10 @@ class WitnessCalculator:
 
     def calculate_witness(self, inputs: Inputs, sanity_check: bool = False) -> List[int]:
         """Run the circuit; returns canonical field elements in [0, r)."""
-        if self.legacy:
-            return self._calculate_witness_legacy(inputs, sanity_check)
-        return self._calculate_witness_circom2(inputs, sanity_check)
+        with trace.stage("witness.calculate"):
+            if self.legacy:
+                return self._calculate_witness_legacy(inputs, sanity_check)
+            return self._calculate_witness_circom2(inputs, sanity_check)
 
     # Alias matching the reference's F-typed variant
     # (negatives are normalized mod r, reference: witness_calculator.rs:164-179).

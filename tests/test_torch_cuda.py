@@ -2,8 +2,9 @@
 PyTorch version on the same CUDA tensors, word for word, the chain254
 golden proof proved on the card, setup -> prove -> verify at a 2^13
 domain (the flat NTT chain) on the card, the standalone msm_g1 / msm_g2 at
-2^12 points against a known-dlog sum, and Groth16.prove of the chain254
-circuit.
+2^12 points against a known-dlog sum, Groth16.prove of the chain254
+circuit, and the streamed prover's chain254 golden proof at several chunk
+sizes (pinned buffers and the copy stream on the card).
 
 They need an NVIDIA GPU and skip without one. On a machine with a card:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider tests/test_torch_cuda.py
@@ -422,3 +423,31 @@ def test_groth16_prove_circuit_on_card(cuda):
     public = circuit.get_public_inputs()
     assert Groth16.verify_proof(pk.vk, proof, public)
     assert not Groth16.verify_proof(pk.vk, proof, [(public[0] + 1) % R_SCALAR])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [37, 100, 256, 1 << 20])
+def test_streamed_chain254_golden_on_card(cuda, chunk):
+    """prove_streamed on the card, chunk by chunk through the pinned buffers
+    and the copy stream (7, 3 and 1 chunks; 2^20 clamps to one), gives the
+    golden proof; one chunk time pair a chunk; Groth16.prove on the
+    streamed backend verifies."""
+    from circom_compat_tpu_torch.circom.zkey import read_zkey
+    from circom_compat_tpu_torch.models import streamed
+    from circom_compat_tpu_torch.models.groth16 import Groth16
+    from circom_compat_tpu_torch.utils.chain import chain_circuit
+
+    rec = json.loads((GOLDEN / "chain254_proof.json").read_text())
+    pk, m = read_zkey(GOLDEN / "chain254.zkey")
+    circuit = chain_circuit(k=254, a=3)
+    spk = streamed.StreamedProvingKey.build(pk, m, m.num_constraints, chunk_points=chunk,
+                                            device=cuda)
+    proof = streamed.prove_streamed(spk, rec["r"], rec["s"], circuit.full_assignment())
+    want = rec["proof"]
+    assert proof.a == tuple(int(v, 16) for v in want["a"])
+    assert proof.b == tuple(tuple(int(v, 16) for v in c) for c in want["b"])
+    assert proof.c == tuple(int(v, 16) for v in want["c"])
+    assert len(streamed.LAST_CHUNK_MS) == -(-256 // min(chunk, 256))
+    assert streamed.LAST_PEAK_DEVICE_BYTES > 0
+    again = Groth16.prove(pk, circuit, device=cuda, backend="streamed")
+    assert Groth16.verify_proof(pk.vk, again, circuit.get_public_inputs())
