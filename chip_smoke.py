@@ -44,7 +44,9 @@ Phases (each passes or raises; nothing is caught):
   7. setup on the card at 2^20 for phase 4's circuit, by stage, with its
      peak device memory; the 2^20 proof made with that key verified by
      pairing;
-  8. the K9 microbenchmark (ops/field_bench.run): G ops/s of each Fq op;
+  8. the K9 microbenchmark (ops/field_bench.run): G ops/s of each Fq op at
+     n = 2^16 and 2^20 by device time (the kernels' profiler spans), the
+     CUDA-event rate (wrapper included) beside it;
   9. the prove server at 2^20: phase 7's key written with write_zkey and the
      chain's assignment with write_wtns; a ProveServer on a unix socket
      (staged keys released first) answers a ping, three witness_file
@@ -72,8 +74,12 @@ Phases (each passes or raises; nothing is caught):
      device memory beside phase 4's (at most 1.10 times it), and one
      profiled prove.
 Phases 2-3 also hold the flat chain's stage kernel (2^10 to 2^13 and 2^20), the Fq
-binary modes (2^20) and the K9 op chain (2^16 elements, K = 64) against
-their plain versions. Each kernel's launches are counted on the path that
+binary modes (2^20) and the K9 op chain against their plain versions: K9
+on each op's edge operands at 2^16 elements with K = 64 and K = 5, at
+2^16 - 37 and at 2^20 (its bound for the ops with no multiply at 128 word
+operations an SM a clock, for the Montgomery products at 64); K1
+and K9 with the profiler's device time, every op a mode of its row. Each
+kernel's launches are counted on the path that
 runs it (phase 4, 6 or 7, or 8 for K9), the counts set to 0 just before;
 phases 9-12 count theirs the same way (launches_by_path on the kernels
 line), and each must launch every kernel of its path.
@@ -139,21 +145,18 @@ def once_ms(fn):
 
 
 def device_ms(fn, reps, match):
-    """Mean device time per call of fn() over reps calls under
-    torch.profiler, summed over the device kernels whose names hold
-    `match`; None when the profiler recorded none."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Mean device time of fn() (one launch of a kernel whose name holds
+    `match`) under torch.profiler, after a warm-up call: utils/trace's
+    device_ms, the mean of the spans it recorded over up to five sessions
+    of reps calls (a note when fewer than reps); None when it recorded
+    none."""
+    from circom_compat_tpu_torch.utils import trace
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
-    return sum(spans) / 1e3 / reps if spans else None
+    ms, spans = trace.device_ms(fn, reps, match)
+    if spans < reps:
+        print(f"    the profiler recorded {spans} {match} spans for {reps} launches")
+    return ms
 
 
 def max_abs_err(a, b, chunk=1 << 26):
@@ -672,12 +675,14 @@ def main() -> int:
     card = nvidia_smi("name,power.limit")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     print(card)
-    mad_rate = 64 * 132 * clock_mhz * 1e6  # 32-bit integer multiply-adds per second
     mem_rate = 3.35e12
     MAD = 264  # multiply-adds per Montgomery multiply (csrc/field.cuh)
 
-    def bound(nbytes, mads):
-        tb, to = nbytes / mem_rate * 1e3, mads / mad_rate * 1e3
+    def bound(nbytes, mads, per_sm_clock=64):
+        """mads 32-bit integer operations at per_sm_clock an SM a clock: 64
+        multiply-adds (the FMA pipe), or 128 for word adds and selects with
+        no multiply (the ALU and FMA pipes side by side)."""
+        tb, to = nbytes / mem_rate * 1e3, mads / (per_sm_clock * 132 * clock_mhz * 1e6) * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     # ---- 2 and 3. kernels vs plain at the 2^20 shapes, then their times -----
@@ -697,11 +702,13 @@ def main() -> int:
         x[:4] = torch.tensor(lc.ints_to_words([0, 1, p - 1, 2 * p - 1]), device=dev)
         return x
 
-    def check(name, kernel_fn, plain_fn, reps, nbytes, mads, replaces, source, note="", device=None):
+    def check(name, kernel_fn, plain_fn, reps, nbytes, mads, replaces, source, note="", device=None,
+              per_sm_clock=64):
         """Kernel vs plain on the same inputs (word for word), then the
         kernel's time (and, given `device`, a substring of its kernel's
         name, its profiler device time); the first check of a name makes
-        its kernels row."""
+        its kernels row. per_sm_clock: the bound's operation rate
+        (bound())."""
         torch.cuda.synchronize()
         got = kernel_fn()
         want, plain_ms = once_ms(plain_fn)
@@ -713,7 +720,7 @@ def main() -> int:
         del got, want, got_t, want_t
         _, ms = timed(kernel_fn, reps)
         dev_ms = device_ms(kernel_fn, reps, device) if device else None
-        b_ms, b_by = bound(nbytes, mads)
+        b_ms, b_by = bound(nbytes, mads, per_sm_clock)
         shown = "" if device is None else (
             f", device {dev_ms:.4f} ms (profiler)" if dev_ms is not None else ", device not measured")
         print(f"[2] {name}{note}: equal to plain (max_abs_err 0, tolerance 0: integer "
@@ -725,7 +732,8 @@ def main() -> int:
             library_ms=None))
         if device:
             results[name].setdefault("device_ms", dev_ms)
-        if name.startswith("ntt_rows") or name in ("fr_butterfly_stage", "fr_tile_scan"):
+        if name.startswith("ntt_rows") or name in ("fr_butterfly_stage", "fr_tile_scan", "fr_binary",
+                                                   "f_binary_fq", "fq_op_chain"):
             # every mode's numbers on the kernels line
             results[name].setdefault("modes", {})[note.strip()] = dict(
                 ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, max_abs_err=err)
@@ -738,10 +746,11 @@ def main() -> int:
     a, b = lazy_fr(n), lazy_fr(n)
     for op in ("mul", "mul_canon", "add", "sub"):
         check("fr_binary", lambda: fk.fr_binary(op, a, b), lambda: fk.fr_binary_plain(op, a, b),
-              20, 96 * n, (MAD if op.startswith("mul") else 0) * n, f"{FP}:84", FSRC, f" {op}")
+              20, 96 * n, (MAD if op.startswith("mul") else 0) * n, f"{FP}:84", FSRC, f" {op}",
+              "binary_kernel")
     elem = a[5].clone()
     check("fr_binary", lambda: fk.fr_binary("mul", a, elem), lambda: fk.fr_binary_plain("mul", a, elem),
-          20, 64 * n, MAD * n, f"{FP}:84", FSRC, " mul by one broadcast element")
+          20, 64 * n, MAD * n, f"{FP}:84", FSRC, " mul by one broadcast element", "binary_kernel")
 
     T = n // 16
     vt = a.reshape(T, 16, 8)
@@ -842,21 +851,30 @@ def main() -> int:
     for op in ("mul", "mul_canon", "add", "sub"):
         check("f_binary_fq", lambda: fk.fr_binary(op, a, b, fl.FQ),
               lambda: fk.fr_binary_plain(op, a, b, fl.FQ),
-              20, 96 * n, (MAD if op.startswith("mul") else 0) * n, f"{FP}:84", FSRC, f" {op}")
+              20, 96 * n, (MAD if op.startswith("mul") else 0) * n, f"{FP}:84", FSRC, f" {op}",
+              "binary_kernel")
     elem = a[5].clone()
     check("f_binary_fq", lambda: fk.fr_binary("mul", a, elem, fl.FQ),
           lambda: fk.fr_binary_plain("mul", a, elem, fl.FQ),
-          20, 64 * n, MAD * n, f"{FP}:84", FSRC, " mul by one broadcast element")
+          20, 64 * n, MAD * n, f"{FP}:84", FSRC, " mul by one broadcast element", "binary_kernel")
     del a, b
 
-    # K9: K dependent steps of one Fq op per element
-    ka, kb = fbn.operands(K9_N, device=dev)
+    # K9: K dependent steps of one Fq op per element, on the op's edge
+    # operands (ops/field_bench.edge_operands: every pairing of 0, 1, q-1,
+    # two values whose low seven words are all ones and, for the lazy ops,
+    # 2q-1 with b = 1, q-1 and 2q-1, then seeded values): at n = 2^16 with
+    # K = 64 and K = 5, at a ragged n, and at n = 2^20 (one thread an element
+    # fills the card); device time at K = 64; the bound at the op's rate
+    # (field_bench.OPS_PER_SM_CLOCK)
     for op in fbn.OPS:
-        check("fq_op_chain", lambda: fbn.fq_op_chain(op, ka, kb, K9_K),
-              lambda: fbn.fq_op_chain_plain(op, ka, kb, K9_K),
-              10, 96 * K9_N, fbn.INT_OPS[op] * K9_K * K9_N,
-              "scripts/bench_field_ops.py:79", FSRC, f" {op}, n=2^16, K={K9_K}")
-    del ka, kb
+        for n9, k9 in ((K9_N, K9_K), (K9_N, 5), (K9_N - 37, K9_K), (n, K9_K)):
+            ka, kb = fbn.edge_operands(op, n9, device=dev)
+            check("fq_op_chain", lambda: fbn.fq_op_chain(op, ka, kb, k9),
+                  lambda: fbn.fq_op_chain_plain(op, ka, kb, k9), 10, 96 * n9, fbn.INT_OPS[op] * k9 * n9,
+                  "scripts/bench_field_ops.py:79", FSRC, f" {op}, n={n9}, K={k9}",
+                  "fq_op_chain" if k9 == K9_K and n9 in (K9_N, n) else None,
+                  per_sm_clock=fbn.OPS_PER_SM_CLOCK[op])
+            del ka, kb
 
     ks, g1_pool, g2_pool = point_pools(rng)
 
@@ -1161,10 +1179,13 @@ def main() -> int:
 
     # ---- 8. K9: the per-op microbenchmark ------------------------------------
     reset_all()
-    rates = fbn.run(K9_N, K9_K, device=dev)
+    rates = {log: fbn.run(1 << log, K9_K, device=dev) for log in (16, LOG_N)}
     take_launches(counts(), ["fq_op_chain"], "the K9 microbenchmark")
-    print(f"[8] K9 G ops/s (n=2^16, K={K9_K}; {card}): "
-          + json.dumps({k2: round(v, 3) for k2, v in rates.items()}))
+    for log, rows8 in rates.items():
+        shown = {op: [None if r["device_gops"] is None else round(r["device_gops"], 3),
+                      round(r["event_gops"], 3), r["spans"]] for op, r in rows8.items()}
+        print(f"[8] K9 G ops/s at n=2^{log}, K={K9_K} ({card}), [by device time (profiler spans), by CUDA "
+              f"events around the launches (wrapper included), spans recorded]: {json.dumps(shown)}")
 
     def path_launches(counts_now, names, path):
         """Each of `names` launched on `path` (counts set to 0 just before):

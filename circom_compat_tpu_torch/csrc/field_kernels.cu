@@ -42,30 +42,83 @@ __global__ void binary_kernel(const uint32_t* __restrict__ a, const uint32_t* __
 // 5 mul9 (8 acc + b by three doublings and one add, all lazy). Its
 // "normalize" op is a carry pass of 16-bit limbs in 32-bit lanes: 32-bit
 // words carry inside the multiply-add chain, so it has no counterpart.
+//
 // Bound: operations, K dependent ops per element in registers against
-// 96 B of traffic. Design: one thread per element, the op chosen by a
-// template so the chain is straight-line code.
+// 96 B of traffic. The kernel times the field core that every other kernel
+// runs, so it calls field.cuh's mul, mul_lazy, add_canon, add and sub.
+//
+// Design. The card sees n independent chains of K steps, each a run of
+// carry chains: an add step is ~25 SASS instructions (the add chain, the
+// conditional subtraction one word behind it, the select), a multiply
+// ~575 (136 IMAD, 128 IMAD.HI, ~250 IADD3.X). Every op is bound by issue
+// slots (an add step by its carry adds on the ALU pipe), not by latency
+// (PERF.md): two chains a thread and a lane pair an element were measured
+// and lost. So one element a thread, and:
+//  - K = kChainSteps (the JAX default, 64) is a template argument: add,
+//    add_lazy and sub_lazy run straight-line; mul9 (~96 instructions a
+//    step) in turns of kChainMul9Unroll steps, the multiplies in turns of
+//    kChainMulUnroll (64 unrolled mul9 steps, 99 KB of code, ran 25 %
+//    slower); any other k takes a runtime loop in turns of
+//    kChainRuntimeUnroll with a remainder.
+//  - Blocks of kChainThreads = 256 while the card holds the whole grid at
+//    once (n = 2^16: every SM holds at most 16 warps whatever the block,
+//    2048 warps on 132 SMs, and 256 measured 1-2 % under 128 and 64);
+//    past that, blocks of kChainWaveThreads = 128: the last of several
+//    waves leaves some SMs a block above the mean, and a smaller block
+//    halves that excess (1-3 % faster at n = 2^20).
+constexpr int kChainThreads = 256;      // threads a block while the grid fits at once
+constexpr int kChainWaveThreads = 128;  // threads a block past that
+constexpr int kChainSteps = 64;         // the step count compiled in: the JAX script's K
+constexpr int kChainMulUnroll = 2;      // multiply steps a loop turn at K = kChainSteps
+constexpr int kChainMul9Unroll = 8;     // mul9 steps a loop turn at K = kChainSteps
+constexpr int kChainAddUnroll = 64;     // add, add_lazy, sub_lazy steps a loop turn there
+constexpr int kChainRuntimeUnroll = 8;  // steps a loop turn for any other k
+
 template <int OP>
-__global__ void fq_op_chain_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                                   uint32_t* __restrict__ o, long long n, int k) {
+__device__ __forceinline__ Fe chain_step(const Fe& acc, const Fe& y) {
+  if constexpr (OP == 0) {
+    return mul<Fq>(acc, y);
+  } else if constexpr (OP == 1) {
+    return mul_lazy<Fq>(acc, y);
+  } else if constexpr (OP == 2) {
+    return add_canon<Fq>(acc, y);
+  } else if constexpr (OP == 3) {
+    return add<Fq>(acc, y);
+  } else if constexpr (OP == 4) {
+    return sub<Fq>(acc, y);
+  } else {
+    const Fe x2 = add<Fq>(acc, acc);
+    const Fe x4 = add<Fq>(x2, x2);
+    return add<Fq>(add<Fq>(x4, x4), y);
+  }
+}
+
+// acc = op(acc, y) K times (k times when K = 0)
+template <int OP, int K>
+__global__ void __launch_bounds__(kChainThreads)
+    fq_op_chain_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                       uint32_t* __restrict__ o, long long n, int k) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   Fe acc = load(a + 8 * i);
   const Fe y = load(b + 8 * i);
-  for (int s = 0; s < k; ++s) {
-    if (OP == 0) acc = mul<Fq>(acc, y);
-    if (OP == 1) acc = mul_lazy<Fq>(acc, y);
-    if (OP == 2) acc = add_canon<Fq>(acc, y);
-    if (OP == 3) acc = add<Fq>(acc, y);
-    if (OP == 4) acc = sub<Fq>(acc, y);
-    if (OP == 5) {
-      const Fe x2 = add<Fq>(acc, acc);
-      const Fe x4 = add<Fq>(x2, x2);
-      acc = add<Fq>(add<Fq>(x4, x4), y);
-    }
+  if constexpr (K > 0) {
+    constexpr int kUnroll = OP <= 1 ? kChainMulUnroll : OP == 5 ? kChainMul9Unroll : kChainAddUnroll;
+#pragma unroll (kUnroll)
+    for (int s = 0; s < K; ++s) acc = chain_step<OP>(acc, y);
+  } else {
+#pragma unroll (kChainRuntimeUnroll)
+    for (int s = 0; s < k; ++s) acc = chain_step<OP>(acc, y);
   }
   store(o + 8 * i, acc);
 }
+
+typedef void (*ChainKernel)(const uint32_t*, const uint32_t*, uint32_t*, long long, int);
+#define CCF_CHAIN(OP) {fq_op_chain_kernel<OP, 0>, fq_op_chain_kernel<OP, kChainSteps>}
+// [op][k == kChainSteps]
+const ChainKernel kChainKernels[6][2] = {CCF_CHAIN(0), CCF_CHAIN(1), CCF_CHAIN(2),
+                                         CCF_CHAIN(3), CCF_CHAIN(4), CCF_CHAIN(5)};
+#undef CCF_CHAIN
 
 // ---- K3/K4: all radix-2 stages of one row, one butterfly pair a thread -----
 // Replaces field_pallas.ntt_low_stages_lm (circom_compat_tpu/ops/
@@ -571,14 +624,17 @@ int ccf_fr_butterfly_stages(const void* x, const void* tw, void* out, long long 
 }
 
 int ccf_fq_op_chain(const void* a, const void* b, void* out, long long n, int op, int k, void* stream) {
+  if (op < 0 || op > 5 || k < 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int threads = 256;
-    void (*kernels[])(const uint32_t*, const uint32_t*, uint32_t*, long long, int) = {
-        fq_op_chain_kernel<0>, fq_op_chain_kernel<1>, fq_op_chain_kernel<2>,
-        fq_op_chain_kernel<3>, fq_op_chain_kernel<4>, fq_op_chain_kernel<5>};
-    if (op < 0 || op > 5) return (int)cudaErrorInvalidValue;
-    kernels[op]<<<blocks_for(n, threads), threads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, k);
+    const ChainKernel kernel = kChainKernels[op][k == kChainSteps ? 1 : 0];
+    int per_sm = 0, device = 0, sms = 0;
+    int rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kChainThreads, 0);
+    if (rc == 0) rc = (int)cudaGetDevice(&device);
+    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (rc != 0) return rc;
+    const int threads = n > (long long)sms * per_sm * kChainThreads ? kChainWaveThreads : kChainThreads;
+    kernel<<<blocks_for(n, threads), threads, 0, (cudaStream_t)stream>>>((const uint32_t*)a, (const uint32_t*)b,
+                                                                         (uint32_t*)out, n, k);
   }
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,8 @@
   - ``device_profile(logdir)``: a ``torch.profiler`` capture (host and, on
     a card, device activity) around a block, written as a Chrome trace
     into ``logdir``.
+  - ``device_ms(fn, reps, match)``: the mean device time of one launch of a
+    kernel, from the kernel spans torch.profiler records.
 
 Timings use ``time.perf_counter``. CUDA work is asynchronous: a stage
 that names a CUDA device synchronizes it when it starts and when it ends
@@ -151,3 +153,26 @@ def device_profile(logdir: str, enabled: bool = True) -> Iterator[None]:
         yield
     prof.export_chrome_trace(
         os.path.join(logdir, f"trace_{os.getpid()}_{time.strftime('%Y%m%d_%H%M%S')}.json"))
+
+
+def device_ms(fn, reps: int, match: str, sessions: int = 5):
+    """(mean device ms, spans recorded) of fn(), one launch of a kernel whose
+    name holds `match`: the mean of the kernel spans torch.profiler records
+    over reps calls, None when it records none. Over many short sessions in
+    one process the card's profiler loses spans, at times most of a
+    session's, so the session repeats, up to `sessions` times, until reps
+    spans are in hand. Never divide the spans' sum by the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spans = []
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans += [e.time_range.end - e.time_range.start for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+        if len(spans) >= reps:
+            break
+    return (sum(spans) / 1e3 / len(spans) if spans else None), len(spans)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The point kernels K6/K7 (point_add) and K8 (point_tile_scan), the NTT
-row kernel K3/K4 (ntt_rows), the flat chain's stage kernel K5 and the Fr
-tile scan K2 of this tree beside other builds, on one NVIDIA GPU.
+row kernel K3/K4 (ntt_rows), the flat chain's stage kernel K5, the Fr
+tile scan K2 and the Fq op chain K9 of this tree beside other builds, on
+one NVIDIA GPU.
 
     python3 scripts/torch_point_sweep.py [--source DIR ...] [--vary SPEC ...]
-        [--kernels add,scan,ntt,butterfly,tile_scan] [--reps N] [--sass]
+        [--kernels add,scan,ntt,butterfly,tile_scan,k9] [--reps N] [--sass]
 
 Builds the sources the chosen kernels need (csrc/curve_kernels.cu for add
 and scan, csrc/field_kernels.cu for the others) from this tree, from each --source
@@ -28,7 +29,11 @@ A), and checks that every build returns this tree's words:
         stage) and one stage at 2^20, with the profiler's device time
         beside the event time;
   tile_scan  K2 at the 2^20 prove's shape (T = 2^16 tiles of 16, flags at
-        0.9) and a ragged T, with the profiler's device time.
+        0.9) and a ragged T, with the profiler's device time;
+  k9    K9 (fq_op_chain) at n = 2^16 and 2^20, K = 64, each op on its edge
+        operands (ops/field_bench.edge_operands), with the profiler's
+        device time; --sass adds each K = 64 kernel's SASS opcodes a step
+        (its static count over the steps it holds).
 The point inputs are seeded random lazy Fq words, Z = one for madd (1 row
 in 97 the identity), one scan flag in 128: the kernels' arithmetic does not
 depend on the points lying on the curve, and chip_smoke.py holds the
@@ -63,7 +68,7 @@ R_TOP = 0x30644E72  # top word of r (the same): keeps random words below 2r
 # kernel set -> (source, substrings of its kernels' (mangled) names)
 SETS = {"add": ("curve_kernels", ("point_add",)), "scan": ("curve_kernels", ("tile_scan",)),
         "ntt": ("field_kernels", ("ntt_rows",)), "butterfly": ("field_kernels", ("butterfly",)),
-        "tile_scan": ("field_kernels", ("fr_tile_scan",))}
+        "tile_scan": ("field_kernels", ("fr_tile_scan",)), "k9": ("field_kernels", ("fq_op_chain",))}
 # entry points of older trees that this tree no longer has
 OLD_SIGNATURES = {"ccf_fr_butterfly_stage": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                                                      ctypes.c_int, ctypes.c_void_p]}
@@ -117,23 +122,82 @@ def build(sources, names, markers):
     return libs
 
 
+def disassemble(so: Path) -> str:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(so)], check=True, capture_output=True, text=True).stdout
+
+
+def demangle(name: str) -> str:
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return name
+    return subprocess.run([tool, name], check=True, capture_output=True, text=True).stdout.strip()
+
+
 def sass_histogram(so: Path, markers) -> dict:
     """{kernel: (static instruction count, the 12 most frequent opcodes)}
     of the kernels whose names hold one of `markers`, from cuobjdump -sass."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(so)], check=True, capture_output=True, text=True).stdout
-    hist, name = {}, None
+    funcs = sass_functions(disassemble(so), markers)
+    return {k: (len(ins), collections.Counter(op for _, op, _ in ins).most_common(12))
+            for k, ins in funcs.items()}
+
+
+def sass_functions(text: str, markers) -> dict:
+    """{kernel: [(address, opcode, line)]} of the kernels whose names hold
+    one of `markers`, from cuobjdump -sass text."""
+    funcs, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1) if any(s in m.group(1) for s in markers) else None
             if name:
-                hist[name] = collections.Counter()
+                funcs[name] = []
             continue
-        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if name and m:
-            hist[name][m.group(1)] += 1
-    return {k: (sum(c.values()), c.most_common(12)) for k, c in hist.items()}
+            funcs[name].append((int(m.group(1), 16), m.group(2), line))
+    return funcs
+
+
+def k9_step_sass(so: Path, csrc: Path) -> dict:
+    """{op: (instructions a step, {opcode: count a step})} of the K = 64
+    kernels of a tree that compiles K in (fq_op_chain_kernel<OP, 64>).
+    Where the steps run in a loop (a conditional backward branch), the
+    loop's body over the steps it holds (the op's unroll constant); else
+    (the add family, straight-line) the whole kernel over its 64 steps, the
+    loads, index and stores spread over them."""
+    from circom_compat_tpu_torch.ops import field_bench as fbn
+
+    text = (csrc / "field_kernels.cu").read_text()
+    unroll = {}
+    for const in ("kChainMulUnroll", "kChainMul9Unroll", "kChainAddUnroll"):
+        m = re.search(rf"constexpr int {const} = (\d+);", text)
+        if m is None:
+            return {}
+        unroll[const] = int(m.group(1))
+    out = {}
+    for kern, ins in sass_functions(disassemble(so), ("fq_op_chain",)).items():
+        m = re.search(r"fq_op_chain_kernel<(\d+), (\d+)>", demangle(kern))
+        if m is None or int(m.group(2)) == 0:
+            continue
+        op = int(m.group(1))
+        const = "kChainMulUnroll" if op <= 1 else "kChainMul9Unroll" if op == 5 else "kChainAddUnroll"
+        loops = []
+        for addr, opcode, line in ins:
+            b = re.search(r"@!?P\d\s+BRA\s+(0x[0-9a-f]+)", line)
+            if opcode == "BRA" and b and int(b.group(1), 16) < addr:
+                loops.append((addr - int(b.group(1), 16), int(b.group(1), 16), addr))
+        if loops:
+            _, lo, hi = max(loops)
+            body = [opcode for addr, opcode, _ in ins if lo <= addr <= hi]
+            steps = min(unroll[const], 64)
+        else:
+            body = [opcode for _, opcode, _ in ins]
+            steps = 64
+        counter = collections.Counter(body)
+        out[fbn.OPS[op]] = (round(len(body) / steps, 2),
+                            {k: round(v / steps, 2) for k, v in counter.most_common(10)})
+    return out
 
 
 def random_points(group, mode, lead, gen, dev):
@@ -154,23 +218,24 @@ def random_points(group, mode, lead, gen, dev):
 
 
 def device_times(libs, tags, launch_of, reps, match):
-    """{tag: mean device ms per launch() call} under torch.profiler, summed
-    over the kernels whose names hold `match` (None if none was recorded)."""
+    """{tag: mean device ms per launch} under torch.profiler
+    (utils/trace.device_ms: the mean of the recorded spans of the
+    kernels whose names hold `match`, one a launch() call, over up to five
+    sessions); None if none was recorded, and a note when fewer than reps
+    were."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from circom_compat_tpu_torch.utils import trace
 
     out = {}
     for tag in tags:
         launch, _ = launch_of(libs[tag][0], tag)
         launch()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                launch()
-            torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
-        out[tag] = round(sum(spans) / 1e3 / reps, 5) if spans else None
+        ms, spans = trace.device_ms(launch, reps, match)
+        out[tag] = None if ms is None else round(ms, 5)
+        if spans < reps:
+            print(f"    the profiler recorded {spans} spans of {tag} for {reps} launches")
     return out
 
 
@@ -320,6 +385,33 @@ def tile_scan_cases(libs, tags, gen, dev, stream, reps, report):
                device_times(libs, tags, launch_of, 10 * reps, "fr_tile_scan"))
 
 
+def k9_cases(libs, tags, dev, stream, reps, report):
+    """K9 at n = 2^16 and 2^20, K = 64, each op on its edge operands."""
+    import torch
+
+    from circom_compat_tpu_torch.ops import field_bench as fbn
+
+    for log_n in (16, 20):
+        n = 1 << log_n
+        for op in fbn.OPS:
+            a, b = fbn.edge_operands(op, n, device=dev)
+            out = {}
+
+            def launch_of(lib, tag):
+                field = lib["field_kernels"]
+                o = out.setdefault(tag, torch.empty_like(a))
+
+                def launch():
+                    rc = field.ccf_fq_op_chain(a.data_ptr(), b.data_ptr(), o.data_ptr(), n, fbn.OPS.index(op),
+                                               64, stream)
+                    _build.check(rc, f"fq_op_chain ({tag})")
+                return launch, (o,)
+
+            n_reps = reps * (20 if log_n == 16 else 2)
+            report(f"k9 {op} n=2^{log_n}", run_case(libs, tags, launch_of, n_reps), n,
+                   device_times(libs, tags, launch_of, n_reps, "fq_op_chain"))
+
+
 def main() -> int:
     import torch
 
@@ -327,7 +419,7 @@ def main() -> int:
     ap.add_argument("--source", nargs="*", default=[], help="other csrc directories")
     ap.add_argument("--vary", nargs="*", default=[], help="NAME=VALUE[,NAME=VALUE] copies of this csrc")
     ap.add_argument("--kernels", default="add,scan",
-                    help="any of add (K6/K7), scan (K8), ntt (K3/K4), butterfly (K5), tile_scan (K2)")
+                    help="any of add (K6/K7), scan (K8), ntt (K3/K4), butterfly (K5), tile_scan (K2), k9")
     ap.add_argument("--reps", type=int, default=3, help="launches per timed turn (more for small n)")
     ap.add_argument("--sass", action="store_true", help="print SASS opcode counts")
     args = ap.parse_args()
@@ -352,6 +444,10 @@ def main() -> int:
                 so = _build.CACHE / "sweep" / tag / f"{name}.so"
                 for kern, (count, top) in sass_histogram(so, markers).items():
                     print(f"sass {tag} {kern}: {count} instructions; {top}")
+            if "k9" in kernels:
+                for key, (count, top) in k9_step_sass(_build.CACHE / "sweep" / tag / "field_kernels.so",
+                                                      Path(sources[tag])).items():
+                    print(f"sass a step {tag} {key}: {count} instructions; {json.dumps(top)}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
     stream = torch.cuda.current_stream().cuda_stream
@@ -406,6 +502,8 @@ def main() -> int:
         butterfly_cases(libs, tags, gen, dev, stream, args.reps, report)
     if "tile_scan" in kernels:
         tile_scan_cases(libs, tags, gen, dev, stream, args.reps, report)
+    if "k9" in kernels:
+        k9_cases(libs, tags, dev, stream, args.reps, report)
     print(json.dumps({"card": card, "ms": results, "device_ms": device,
                       "ptxas": {tag: res for tag, (_, res) in libs.items()}}))
     return 0

@@ -305,10 +305,18 @@ def test_fr_butterfly_stages(cuda, n, half_lo, half_hi, dif):
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["mont_mul", "mont_mul_lazy", "add", "add_lazy", "sub_lazy", "mul9"])
 def test_fq_op_chain(cuda, op):
+    """On the op's edge operands at a ragged n, at the step count compiled
+    in (64) and at runtime step counts (the loop's remainder alone, and
+    turns of 8); then at a ragged n past what the card holds at once (the
+    launch's smaller blocks)."""
     from circom_compat_tpu_torch.ops import field_bench as fbn
 
-    a, b = fbn.operands(1000, device=cuda)
-    _same(fbn.fq_op_chain(op, a, b, 9), fbn.fq_op_chain_plain(op, a, b, 9))
+    a, b = fbn.edge_operands(op, 1000 - 37, device=cuda)
+    for k in (64, 0, 1, 5, 9, 19):
+        _same(fbn.fq_op_chain(op, a, b, k), fbn.fq_op_chain_plain(op, a, b, k))
+    a, b = fbn.edge_operands(op, (1 << 19) - 37, device=cuda)
+    for k in (64, 5):
+        _same(fbn.fq_op_chain(op, a, b, k), fbn.fq_op_chain_plain(op, a, b, k))
 
 
 @pytest.mark.cuda
