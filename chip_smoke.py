@@ -63,6 +63,20 @@ Phases (each passes or raises; nothing is caught):
  11. the standalone msm_g1 / msm_g2 at 2^20 points of known discrete logs
      from phase 4's pools: equal to (sum s_i k_i) G, then points/s (median
      of 3 after the checked call);
+ 13. (run right after phase 4, on its key, assignment and r/s) the
+     multi-device provers (parallel/) over a mesh of four entries that repeat
+     the card (and over distinct cards, in turn, where the machine has two
+     or more):
+     build_sharded_prover with the distributed NTT on and off, each proof
+     equal to phase 4's byte for byte, medians of 3, stages, peak memory,
+     launches and one profiled prove; ntt_rows at the distributed witness
+     map's shapes against its plain version (on the kernels line); the
+     sharded witness map's h against its plain version and, under td_perm,
+     the resident one; msm_g1_sharded at 2^20 against msm_g1;
+     prove_streamed_sharded at chunk 3 * 2^17 against the resident proof with
+     each part's copy and compute time; the CLI's dist-dryrun (two gloo
+     processes of two shards sharing the card, 2^13, global and two-level
+     mesh), whose workers' launches must include fr_butterfly_stage (K5);
  12. the streamed prover (models/streamed.py; run after phase 8, and its
      key released before phase 9 stages its own): phase 4's key streamed
      at three chunks (3 * 2^17, the last padded) and at one must give phase
@@ -173,6 +187,26 @@ def max_abs_err(a, b, chunk=1 << 26):
         ub = fb[i : i + chunk].to(torch.int64) & 0xFFFFFFFF
         err = max(err, int((ua - ub).abs().max().item()))
     return err
+
+
+def sync_sites(fn):
+    """(fn(), {file:line: count}) of the calls that synchronized a CUDA
+    device while fn ran (torch.cuda.set_sync_debug_mode("warn"))."""
+    import collections
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, dict(collections.Counter(
+        f"{Path(w.filename).parent.name}/{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "called a synchronizing CUDA operation" in str(w.message)))
 
 
 def profile_prove(fn, phase, label, top=12):
@@ -532,6 +566,7 @@ def msm_phase(dev, card, ks, g1_pool, g2_pool, gen, on_path, n=1 << LOG_N):
 
 STREAMED_KERNELS = ["fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid", "point_add_g1",
                     "point_add_g2", "tile_scan_g1", "tile_scan_g2"]
+SHARDED_KERNELS = STREAMED_KERNELS  # K1, K2, K3/K4, K6/K7 and K8
 
 
 def streamed_phase(dev, card, pk, matrices, resident, asg, r, s, rng, ks, g1_pool, g2_pool,
@@ -623,6 +658,233 @@ def streamed_phase(dev, card, pk, matrices, resident, asg, r, s, rng, ks, g1_poo
     if cuda:
         torch.cuda.empty_cache()
     print(f"[12] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+SHARDS = 4  # phase 13's mesh: four shards, on one card (repeated) and over the cards in turn
+
+
+def sharded_phase(dev, card, dpk, matrices, resident, asg, r, s, g1_pool, gen, on_path,
+                  record_launches, check, mad, resident_peak, log_n=LOG_N,
+                  dryrun_k=(1 << LOG_SMALL) - 2, reps=3):
+    """[13] The multi-device provers (parallel/) on phase 4's key, assignment
+    and r/s, over a mesh of SHARDS entries that repeat the card (and over
+    the machine's cards in turn where it has two or more): (a) build_sharded_prover with
+    dist_ntt on and off, each proof equal to phase 4's resident proof byte for
+    byte, with medians of 3, stages, peak device memory and launches, one
+    profiled prove; ntt_rows held against its plain version at the
+    distributed witness map's shapes; (b) the sharded witness map's h equal to
+    its plain version word for word and to the resident witness map's under
+    td_perm; (c) msm_g1_sharded at 2^log_n equal to msm_g1; (d)
+    prove_streamed_sharded at chunk 3 * 2^(log_n - 3) equal to the resident
+    proof, each part's copy and compute time; (e) the CLI's dist-dryrun with
+    two gloo processes of two shards sharing the card at a 2^13 domain, whose
+    worker proofs must agree with each other and the single-process prove."""
+    import torch
+
+    from circom_compat_tpu_torch.models import groth16_device as gd
+    from circom_compat_tpu_torch.models import streamed as sm
+    from circom_compat_tpu_torch.ops import curve as cv
+    from circom_compat_tpu_torch.ops import field_kernels as fk
+    from circom_compat_tpu_torch.ops import limbs as lc
+    from circom_compat_tpu_torch.ops import msm
+    from circom_compat_tpu_torch.parallel import mesh as pm
+    from circom_compat_tpu_torch.parallel import msm_sharded as ms
+    from circom_compat_tpu_torch.parallel import ntt_sharded as ns
+    from circom_compat_tpu_torch.parallel import prove_sharded as ps
+    from circom_compat_tpu_torch.parallel import streamed_sharded as ss
+    from circom_compat_tpu_torch.utils import trace
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    here = torch.device("cuda", torch.cuda.current_device()) if cuda else dev
+    meshes = {"one card x4": pm.make_mesh(devices=[here] * SHARDS)}
+    cards = torch.cuda.device_count() if cuda else 0
+    if cards >= 2:  # the shards over the cards in turn: cuda:0..3 on four, 0, 1, 0, 1 on two
+        meshes["distinct cards"] = pm.make_mesh(
+            devices=[torch.device("cuda", i % cards) for i in range(SHARDS)])
+    else:
+        print(f"[13] distinct cards: not run (the machine has {cards} card(s)); the times below "
+              "run four shards one after another on one card: the sharded code path, not a "
+              "speed-up")
+    phys = [d for d in dict.fromkeys(str(d) for m in meshes.values() for d in m.devices)
+            if torch.device(d).type == "cuda"]
+
+    def peaks_since(base):
+        return {d: [torch.cuda.max_memory_allocated(d), torch.cuda.max_memory_allocated(d) - base[d]]
+                for d in phys}
+
+    def reset_peaks():
+        if cuda:
+            torch.cuda.empty_cache()
+            for d in phys:
+                torch.cuda.reset_peak_memory_stats(d)
+        return {d: torch.cuda.memory_allocated(d) for d in phys}
+
+    # (a) the sharded prove, dist_ntt on and off
+    for label, mesh in meshes.items():
+        for dist_ntt in (True, False):
+            name = f"{'dist_ntt' if dist_ntt else 'replicated'}, {label}"
+            base = reset_peaks()
+            t0 = time.perf_counter()
+            prover = ps.build_sharded_prover(dpk, mesh, dist_ntt=dist_ntt)
+            build_s = time.perf_counter() - t0
+            got, launches = on_path(f"sharded {name}", SHARDED_KERNELS,
+                                    lambda: ps.prove_sharded(dpk, prover, r, s, asg))
+            if got != resident:
+                raise AssertionError(f"the sharded proof ({name}) differs from the resident one")
+            walls, stages = [], []
+            for _ in range(reps):
+                st = {}
+                t1 = time.perf_counter()
+                again = ps.prove_sharded(dpk, prover, r, s, asg, stage_times=st)
+                walls.append(time.perf_counter() - t1)
+                stages.append(st)
+                if again != resident:
+                    raise AssertionError(f"a repeated sharded prove ({name}) gave another proof")
+            print(f"[13] (a) sharded prove at 2^{log_n} over {SHARDS} shards ({name}; devices "
+                  f"{mesh.physical()}; window bits {prover.window_bits}): equals phase 4's resident "
+                  f"proof byte for byte; build {build_s:.3f} s; median {statistics.median(walls):.4f} s "
+                  f"of {[round(w, 4) for w in walls]} ({card}); stages (median s): " + json.dumps(
+                      {k: round(statistics.median(x[k] for x in stages), 4) for k in stages[0]}))
+            if cuda:
+                print(f"[13] (a) {name}: peak device memory [bytes, bytes above the {base} allocated "
+                      f"before the build] {json.dumps(peaks_since(base))}, phase 4's resident peak "
+                      f"{resident_peak} B")
+            print(f"[13] (a) {name}: launches in one prove {json.dumps(launches)}")
+            if cuda:
+                again, sites = sync_sites(lambda: ps.prove_sharded(dpk, prover, r, s, asg))
+                if again != resident:
+                    raise AssertionError(f"the sharded proof ({name}) under sync debugging differs")
+                print(f"[13] (a) {name}: calls that synchronized a card in one prove (file:line: "
+                      f"count; encode's host copies and the readback are expected): {json.dumps(sites)}")
+            if cuda and label == "one card x4":
+                profile_prove(lambda: ps.prove_sharded(dpk, prover, r, s, asg), 13, f"sharded {name}")
+            del prover
+    reset_peaks()
+
+    # ntt_rows at the distributed witness map's shapes: shard 0's rows of four
+    plan = ns.get_dist_plan(dpk.domain_size, SHARDS)
+    mesh = meshes["one card x4"]
+    tab = plan.shard_tables(mesh.devices, chain=True)[0]
+    rows, L = plan.n2 // SHARDS, plan.n1
+    cnt = rows * L
+
+    def lazy(count):
+        x = torch.randint(-2**31, 2**31, (count, 8), dtype=torch.int32, device=dev, generator=gen)
+        x[:, 7] = torch.remainder(x[:, 7].to(torch.int64), 0x60C89CE5).to(torch.int32)
+        return x.reshape(rows, L, 8)
+
+    x, other = lazy(cnt), lazy(cnt)
+    muls = rows * ((L // 2) * (L.bit_length() - 1) - (L - 1))  # butterflies whose twiddle is not one
+    FP = "circom_compat_tpu/ops/field_pallas.py"
+    FSRC = "circom_compat_tpu_torch/csrc/field_kernels.cu"
+    shape = f"{rows} rows of {L}, one shard of {SHARDS} at 2^{log_n}"
+    mid_kw = dict(pre=tab["twi"], tw_dif=tab["tw1_inv"], mid=tab["coset"], tw_dit=tab["tw1_fwd"],
+                  post=tab["twf"])
+    check("ntt_rows_mid", lambda: fk.ntt_rows(x, **mid_kw), lambda: fk.ntt_rows_plain(x, **mid_kw),
+          10, 160 * cnt, mad * (2 * muls + 3 * cnt), f"{FP}:432", FSRC,
+          f" dist middle: twiddle pre, DIF, coset mid, DIT, twiddle post ({shape})")
+    check("ntt_rows_low", lambda: fk.ntt_rows(x, tw_dif=tab["tw2_inv"], pre=other),
+          lambda: fk.ntt_rows_plain(x, tw_dif=tab["tw2_inv"], pre=other),
+          10, 96 * cnt, mad * (muls + cnt), f"{FP}:387", FSRC, f" dist DIF + pre ({shape})")
+    check("ntt_rows_low", lambda: fk.ntt_rows(x, tw_dit=tab["tw2_fwd"], post=other, post_op="sub"),
+          lambda: fk.ntt_rows_plain(x, tw_dit=tab["tw2_fwd"], post=other, post_op="sub"),
+          10, 96 * cnt, mad * muls, f"{FP}:387", FSRC, f" dist DIT + post sub ({shape})")
+    del x, other
+
+    # (b) the sharded witness map against its plain version and the resident one
+    coo = ps._td_coo(dpk, plan, SHARDS)
+    wm = ns.make_sharded_witness_map(plan, mesh, *coo)
+    wm_plain = ns.make_sharded_witness_map(plan, mesh, *coo, ops=fk.PLAIN)
+    asg_mont = fk.fr_to_mont(torch.from_numpy(gd.encode_assignment(asg)).to(dev))
+    one = torch.tensor(lc.ints_to_words([1])[0], device=dev)
+    h_sh = torch.cat([fk.fr_from_mont(b) for b in wm(asg_mont)])
+    h_sh_plain = torch.cat([fk.fr_binary_plain("mul_canon", b, one) for b in wm_plain(asg_mont)])
+    if max_abs_err(h_sh, h_sh_plain) != 0:
+        raise AssertionError("the sharded witness map differs from its plain version")
+    h_res = fk.fr_from_mont(dpk.matrices.witness_map(asg_mont))
+    td = torch.from_numpy(plan.td_perm.astype(np.int64)).to(dev)
+    if max_abs_err(h_sh[td], h_res) != 0:
+        raise AssertionError("the sharded witness map's h differs from the resident one under td_perm")
+    wm_ms, res_ms = (timed(fn, 5)[1] if cuda else None for fn in
+                     (lambda: wm(asg_mont), lambda: dpk.matrices.witness_map(asg_mont)))
+    print(f"[13] (b) the sharded witness map at 2^{log_n} over {SHARDS} shards (n1 {plan.n1}, n2 "
+          f"{plan.n2}) equals its plain version word for word and the resident witness map under "
+          f"td_perm (canonical); CUDA events, mean of 5: sharded {wm_ms} ms, resident {res_ms} ms "
+          f"({card})")
+    del wm, wm_plain, coo, asg_mont, h_sh, h_sh_plain, h_res, td
+    plan.release()
+
+    # (c) msm_g1_sharded against msm_g1
+    n = 1 << log_n
+    pool_xy = torch.from_numpy(cv.encode_g1_affine(g1_pool)).to(dev)
+    xy = pool_xy[torch.randint(0, len(g1_pool), (n,), device=dev, generator=gen)]
+    xy[::997] = 0
+    sc = torch.randint(-2**31, 2**31, (n, 8), dtype=torch.int32, device=dev, generator=gen)
+    sc[:, 7] = torch.remainder(sc[:, 7].to(torch.int64), 0x30644E72).to(torch.int32)  # < r
+    wb = msm.pick_window_bits(n // SHARDS)
+    t0 = time.perf_counter()
+    want = msm.msm_g1(xy, sc, device=dev)
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, launches = on_path("msm_g1_sharded", ["tile_scan_g1", "point_add_g1"],
+                            lambda: ms.msm_g1_sharded(xy, sc, mesh, window_bits=wb))
+    sharded_s = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError("msm_g1_sharded differs from msm_g1")
+    print(f"[13] (c) msm_g1_sharded of {n} points over {SHARDS} shards (window bits {wb}) equals "
+          f"msm_g1: {sharded_s:.4f} s against {single_s:.4f} s (first calls, {card}); launches "
+          f"{json.dumps(launches)}")
+    del xy, sc, pool_xy
+
+    # (d) the streamed prove over the mesh
+    chunk = 3 << (log_n - 3)
+    spk = sm.StreamedProvingKey.build(dpk.pk, matrices, matrices.num_constraints,
+                                      chunk_points=chunk, device=dev)
+    for label, mesh_d in meshes.items():
+        reset_peaks()
+        got, launches = on_path(f"streamed_sharded {label}", STREAMED_KERNELS,
+                                lambda: ss.prove_streamed_sharded(spk, mesh_d, r, s, asg))
+        if got != resident:
+            raise AssertionError(f"the streamed sharded proof ({label}) differs from the resident one")
+        with trace.collect() as tr:
+            t1 = time.perf_counter()
+            again = ss.prove_streamed_sharded(spk, mesh_d, r, s, asg)
+            wall = time.perf_counter() - t1
+        if again != resident:
+            raise AssertionError("a repeated streamed sharded prove gave another proof")
+        print(f"[13] (d) streamed sharded prove at 2^{log_n}, chunk {chunk} over {SHARDS} shards "
+              f"({label}; {mesh_d.physical()}): equals the resident proof byte for byte; second prove "
+              f"{wall:.4f} s ({card}); stages (s): "
+              + json.dumps({k: round(v, 4) for k, v in tr.as_dict().items()}))
+        print(f"[13] (d) {label}: launches {json.dumps(launches)}; each shard's parts (copy ms, compute "
+              f"ms; CUDA events on its copy and compute stream): " + json.dumps(
+                  {i: [[round(c, 3), round(m, 3)] for c, m in v] for i, v in ss.LAST_CHUNK_MS.items()})
+              + f"; peak device memory {json.dumps(ss.LAST_PEAK_DEVICE_BYTES)} B")
+    del spk
+    reset_peaks()
+
+    # (e) the CLI's dist-dryrun: two gloo processes of two shards sharing the card
+    root = Path(__file__).resolve().parent
+    for extra in ([], ["--two-level"]):
+        cmd = [sys.executable, "-m", "circom_compat_tpu_torch", "dist-dryrun", "--processes", "2",
+               "--local-devices", "2", "--chain-k", str(dryrun_k), "--backend", "gloo",
+               "--timeout", "240", *extra, *([] if cuda else ["--device", "cpu"])]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"dist-dryrun {extra} failed ({out.returncode}): {out.stderr[-3000:]}")
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+        if not (line["ok"] and line["proof_matches_single_process"]):
+            raise AssertionError(f"dist-dryrun {extra}: {line}")
+        path = "dist_dryrun" + ("_two_level" if extra else "")
+        record_launches(line["launches"], ["fr_butterfly_stage", "fr_binary", "fr_tile_scan",
+                                           "ntt_rows_low", "point_add_g1", "point_add_g2",
+                                           "tile_scan_g1", "tile_scan_g2"], path)
+        print(f"[13] (e) {' '.join(cmd[3:])}: {wall:.3f} s wall ({card}); worker proofs "
+              f"agree with each other and the single-process prove; record " + json.dumps(line))
+    print(f"[13] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -958,6 +1220,32 @@ def main() -> int:
                 registers={mode: row["registers"] for mode, row in res.items()},
                 spill_bytes={mode: row["spill_stores"] + row["spill_loads"] for mode, row in res.items()})
 
+    def reset_all():
+        fk.reset_launches()
+        ck.reset_launches()
+        fbn.reset_launches()
+
+    def counts():
+        return {**fk.LAUNCHES, **ck.LAUNCHES, **fbn.LAUNCHES}
+
+    def path_launches(counts_now, names, path):
+        """Each of `names` launched on `path` (counts set to 0 just before):
+        recorded beside the main path's count."""
+        for name in names:
+            if counts_now[name] <= 0:
+                raise AssertionError(f"kernel {name} did not launch on {path}")
+            results[name].setdefault("launches_by_path", {})[path] = counts_now[name]
+
+    def on_path(path, names, fn):
+        """fn() with every count set to 0 just before it; each of `names`
+        must have launched just after."""
+        reset_all()
+        out = fn()
+        torch.cuda.synchronize()
+        now = counts()
+        path_launches(now, names, path)
+        return out, {k2: v for k2, v in now.items() if v}
+
     # ---- 4. main path at a 2^20 domain --------------------------------------
     from circom_compat_tpu_torch.models import groth16_device as gd
 
@@ -1031,6 +1319,11 @@ def main() -> int:
     assert proof == expected_proof(secret, asg, h_ints, r_, s_), \
         "proof differs from the host's known-dlog A, B, C"
     print("[4] proof equals the host's known-dlog A, B, C; h equals the plain witness map")
+    del asg_dev, asg_mont, h, h_plain
+
+    # ---- 13. the multi-device provers on phase 4's key ----------------------
+    sharded_phase(dev, card, dpk, m4, proof, asg, r_, s_, g1_pool, gen, on_path, path_launches,
+                  check, MAD, peak4)
     del dpk
     torch.cuda.empty_cache()
 
@@ -1055,14 +1348,6 @@ def main() -> int:
     # ---- 6. the small-circuit path at 2^13 (flat NTT chain) ------------------
     from circom_compat_tpu_torch.circom.zkey_writer import write_zkey
     from circom_compat_tpu_torch.models import generate_parameters_from_matrices
-
-    def reset_all():
-        fk.reset_launches()
-        ck.reset_launches()
-        fbn.reset_launches()
-
-    def counts():
-        return {**fk.LAUNCHES, **ck.LAUNCHES, **fbn.LAUNCHES}
 
     def toxic():
         return dict(zip(("alpha", "beta", "gamma", "delta", "t"),
@@ -1186,24 +1471,6 @@ def main() -> int:
                       round(r["event_gops"], 3), r["spans"]] for op, r in rows8.items()}
         print(f"[8] K9 G ops/s at n=2^{log}, K={K9_K} ({card}), [by device time (profiler spans), by CUDA "
               f"events around the launches (wrapper included), spans recorded]: {json.dumps(shown)}")
-
-    def path_launches(counts_now, names, path):
-        """Each of `names` launched on `path` (counts set to 0 just before):
-        recorded beside the main path's count."""
-        for name in names:
-            if counts_now[name] <= 0:
-                raise AssertionError(f"kernel {name} did not launch on {path}")
-            results[name].setdefault("launches_by_path", {})[path] = counts_now[name]
-
-    def on_path(path, names, fn):
-        """fn() with every count set to 0 just before it; each of `names`
-        must have launched just after."""
-        reset_all()
-        out = fn()
-        torch.cuda.synchronize()
-        now = counts()
-        path_launches(now, names, path)
-        return out, {k2: v for k2, v in now.items() if v}
 
     streamed_phase(dev, card, pk4, m4, proof, asg, r_, s_, rng, ks, g1_pool, g2_pool, on_path,
                    peak4)

@@ -14,12 +14,18 @@
   python -m circom_compat_tpu_torch setup   <circuit.r1cs> <out.zkey> [vk.json] [--device cpu]
   python -m circom_compat_tpu_torch serve   <circuit.zkey> [--wasm W] [--socket S] [--device cpu]
   python -m circom_compat_tpu_torch prove-client [--witness W | --inputs I] [--socket S]
+  python -m circom_compat_tpu_torch dist-dryrun [--processes N] [--local-devices M] \
+                                            [--chain-k K] [--two-level] [--timeout S] \
+                                            [--device cpu] [--backend nccl|gloo]
 
 Commands that prove or set up run on the card unless --device names another
 device (--device cpu: every kernel wrapper's plain version); without a card
 the default raises. --backend streamed keeps the key's query sections on the
 host and sends them to the device in chunks (models/streamed.py), for keys
-larger than the card's memory. `--timings` before the command prints the
+larger than the card's memory. dist-dryrun proves a squaring chain in N
+local processes of M shards each (parallel/multihost.py) and checks their
+proofs against each other and the single-process prove; ranks that share a
+card must name --backend gloo. `--timings` before the command prints the
 stage table of utils/trace.py to stderr when the command finishes. proof.json / public.json / verification_key.json match
 snarkjs's JSON schema (decimal strings, G2 as [[c0,c1],...]).
 """
@@ -296,6 +302,23 @@ def cmd_prove_client(args) -> int:
     return 0
 
 
+def cmd_dist_dryrun(args) -> int:
+    """Multi-process prove on local worker processes over torch.distributed
+    (parallel/multihost.dist_dryrun): one JSON line with the layout, the
+    devices used and the times."""
+    from .parallel.multihost import dist_dryrun
+
+    rec = dist_dryrun(num_processes=args.processes, local_devices=args.local_devices,
+                      chain_k=args.chain_k, two_level=args.two_level, timeout=args.timeout,
+                      device=args.device, backend=args.backend)
+    print(json.dumps({"ok": True, "processes": rec["processes"], "devices": rec["devices"],
+                      "mesh": rec["mesh"], "physical_devices": rec["physical_devices"],
+                      "backend": rec["backend"], "proof_matches_single_process": True,
+                      "wall_s": rec["wall_s"], "worker_prove_s": rec["worker_prove_s"],
+                      "launches": rec["launches"]}))
+    return 0
+
+
 def _device_option(p) -> None:
     p.add_argument("--device", default=None,
                    help="torch device to prove on (default: the card; 'cpu' runs the "
@@ -387,6 +410,20 @@ def main(argv=None) -> int:
     pc.add_argument("--public", default="public.json")
     pc.add_argument("--timeout", type=float, default=600.0)
     pc.set_defaults(fn=cmd_prove_client)
+
+    dd = sub.add_parser("dist-dryrun", help="multi-process prove on local worker processes, "
+                                            "checked against the single-process prove")
+    dd.add_argument("--processes", type=int, default=2)
+    dd.add_argument("--local-devices", type=int, default=2, help="shards a process")
+    dd.add_argument("--chain-k", type=int, default=62,
+                    help="squaring-chain constraints (domain = k + 2)")
+    dd.add_argument("--two-level", action="store_true",
+                    help="use the (dcn, shards) two-level mesh")
+    dd.add_argument("--timeout", type=float, default=900.0)
+    dd.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="torch.distributed backend (default: nccl on cards, gloo on the CPU)")
+    _device_option(dd)
+    dd.set_defaults(fn=cmd_dist_dryrun)
 
     args = ap.parse_args(argv)
     if args.timings:

@@ -145,47 +145,73 @@ def _stage_pack(spk: StreamedProvingKey, lo: int, g1: torch.Tensor, g2: torch.Te
     stage_rows(spk.g2_section, lo, g2.numpy())
 
 
+class ChunkPipe:
+    """One device's end of the chunk stream, under the rules of the module
+    docstring: on a CUDA device two pinned host buffer pairs, two device
+    buffer pairs and a copy stream; on the CPU one plain buffer pair. Each
+    push fills a host pair, copies it to the device and queues the chunk's
+    compute there without a host sync."""
+
+    def __init__(self, device: torch.device, chunk: int):
+        self.cuda = device.type == "cuda"
+        self.events: List[list] = []
+        if not self.cuda:
+            self.host = [_host_pack(chunk, pin=False)]
+            return
+        self.compute_stream = torch.cuda.current_stream(device)
+        self.copy_stream = torch.cuda.Stream(device)
+        self.host = [_host_pack(chunk, pin=True) for _ in range(2)]
+        self.card = [tuple(torch.empty_like(t, device=device) for t in self.host[0])
+                     for _ in range(2)]
+        self.copy_stream.wait_stream(self.compute_stream)  # queued compute may have freed these blocks
+        self.copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self.consumed: List[Optional[torch.cuda.Event]] = [None, None]
+
+    def push(self, stage, compute) -> None:
+        """stage(g1, g2) fills a host buffer pair; compute(g1, g2) then runs
+        on the device's copy of it."""
+        if not self.cuda:
+            stage(*self.host[0])
+            compute(*self.host[0])
+            return
+        i = len(self.events) % 2
+        if self.copied[i] is not None:
+            self.copied[i].synchronize()  # pinned buffer i's last copy has run
+        stage(*self.host[i])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with torch.cuda.stream(self.copy_stream):
+            if self.consumed[i] is not None:
+                self.copy_stream.wait_event(self.consumed[i])  # device buffer i is free
+            ev[0].record(self.copy_stream)
+            for dst, src in zip(self.card[i], self.host[i]):
+                dst.copy_(src, non_blocking=True)
+            ev[1].record(self.copy_stream)
+        self.copied[i] = ev[1]
+        self.compute_stream.wait_event(ev[1])
+        ev[2].record(self.compute_stream)
+        compute(*self.card[i])
+        ev[3].record(self.compute_stream)
+        self.consumed[i] = ev[3]
+        self.events.append(ev)
+
+    def chunk_ms(self) -> List[Tuple[float, float]]:
+        """Each chunk's (copy ms, compute ms) on a CUDA device, once its last
+        compute has run; [] on the CPU."""
+        if not self.events:
+            return []
+        self.events[-1][3].synchronize()
+        return [(a.elapsed_time(b), c.elapsed_time(d)) for a, b, c, d in self.events]
+
+
 def _stream(spk: StreamedProvingKey, chunk: int, n: int, compute) -> List[Tuple[float, float]]:
     """compute(lo, g1, g2) for every chunk of rows [lo, lo + chunk) of the
     sections, g1 and g2 on the key's device. Returns each chunk's (copy ms,
     compute ms) on a CUDA device, [] on the CPU."""
-    if spk.device.type != "cuda":
-        g1, g2 = _host_pack(chunk, pin=False)
-        for lo in range(0, n, chunk):
-            _stage_pack(spk, lo, g1, g2)
-            compute(lo, g1, g2)
-        return []
-    dev = spk.device
-    compute_stream = torch.cuda.current_stream(dev)
-    copy_stream = torch.cuda.Stream(dev)
-    host = [_host_pack(chunk, pin=True) for _ in range(2)]
-    card = [tuple(torch.empty_like(t, device=dev) for t in host[0]) for _ in range(2)]
-    copy_stream.wait_stream(compute_stream)  # queued compute may have freed these blocks
-    copied: List[Optional[torch.cuda.Event]] = [None, None]
-    consumed: List[Optional[torch.cuda.Event]] = [None, None]
-    events = []
-    for j, lo in enumerate(range(0, n, chunk)):
-        i = j % 2
-        if copied[i] is not None:
-            copied[i].synchronize()  # pinned buffer i's last copy has run
-        _stage_pack(spk, lo, *host[i])
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        with torch.cuda.stream(copy_stream):
-            if consumed[i] is not None:
-                copy_stream.wait_event(consumed[i])  # device buffer i is free
-            ev[0].record(copy_stream)
-            for dst, src in zip(card[i], host[i]):
-                dst.copy_(src, non_blocking=True)
-            ev[1].record(copy_stream)
-        copied[i] = ev[1]
-        compute_stream.wait_event(ev[1])
-        ev[2].record(compute_stream)
-        compute(lo, *card[i])
-        ev[3].record(compute_stream)
-        consumed[i] = ev[3]
-        events.append(ev)
-    events[-1][3].synchronize()
-    return [(a.elapsed_time(b), c.elapsed_time(d)) for a, b, c, d in events]
+    pipe = ChunkPipe(spk.device, chunk)
+    for lo in range(0, n, chunk):
+        pipe.push(lambda g1, g2: _stage_pack(spk, lo, g1, g2),
+                  lambda g1, g2: compute(lo, g1, g2))
+    return pipe.chunk_ms()
 
 
 def _padded(x: torch.Tensor, length: int) -> torch.Tensor:

@@ -159,7 +159,7 @@ def proj_madd(F, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def _one_words(g2: bool, device) -> torch.Tensor:
-    one = FQ.words(FQ.one_mont, device)
+    one = FQ.const_words(FQ.one_mont, device)
     if g2:
         return torch.stack((one, torch.zeros_like(one)))
     return one

@@ -56,6 +56,19 @@ class FieldSpec:
         """One element as an (8,) int32 word tensor."""
         return torch.from_numpy(limb_codec.ints_to_words([v])[0].copy()).to(device)
 
+    def const_words(self, v: int, device=None) -> torch.Tensor:
+        """words(v, device) staged once a device, for constants the callers
+        only read. A copy from pageable host memory to a card waits for the
+        work queued on its stream, so a fresh constant between launches
+        would stall the host there (and serialize the cards of a mesh)."""
+        key = (self.name, v, str(torch.device("cpu") if device is None else torch.device(device)))
+        if key not in _CONSTANTS:
+            _CONSTANTS[key] = self.words(v, device)
+        return _CONSTANTS[key]
+
+
+_CONSTANTS: dict = {}  # FieldSpec.const_words: (field, value, device) -> (8,) words
+
 
 def _spec(name: str, p: int, r_mod: int, r2: int) -> FieldSpec:
     return FieldSpec(name, p, (-pow(p, -1, 1 << 16)) % (1 << 16),

@@ -106,13 +106,13 @@ def fr_binary(op: str, a: torch.Tensor, b: torch.Tensor,
 
 def fr_to_mont(x: torch.Tensor) -> torch.Tensor:
     """Plain canonical words -> Montgomery form (lazy)."""
-    return fr_binary("mul", x, fl.FR.words(fl.FR.r2, x.device))
+    return fr_binary("mul", x, fl.FR.const_words(fl.FR.r2, x.device))
 
 
 def fr_from_mont(x: torch.Tensor) -> torch.Tensor:
     """Montgomery (possibly lazy) -> plain CANONICAL words (< r): the form
     digit extraction and serialization need."""
-    return fr_binary("mul_canon", x, fl.FR.words(1, x.device))
+    return fr_binary("mul_canon", x, fl.FR.const_words(1, x.device))
 
 
 # ---------------------------------------------------------------------------

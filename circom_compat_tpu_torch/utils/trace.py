@@ -98,15 +98,20 @@ def collect() -> Iterator[Trace]:
 
 
 def _sync(device) -> None:
-    if device is not None and torch.device(device).type == "cuda":
+    if device is None:
+        return
+    if hasattr(device, "synchronize"):  # a parallel.mesh.Mesh: every card of it
+        device.synchronize()
+    elif torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
 
 @contextlib.contextmanager
 def stage(name: str, device=None) -> Iterator[None]:
     """Record one pipeline stage. Nesting produces ``outer/inner`` paths.
-    ``device``: the stage's device; a CUDA device is synchronized at both
-    ends while the stage records. Free when nothing collects and
+    ``device``: the stage's device, or a parallel.mesh.Mesh; a CUDA device
+    (every card of a mesh) is synchronized at both ends while the stage
+    records. Free when nothing collects and
     ``CIRCOM_TPU_TIMINGS`` is unset."""
     st = _state()
     log = os.environ.get(_LOG_ENV, "") not in ("", "0")

@@ -459,3 +459,172 @@ def test_streamed_chain254_golden_on_card(cuda, chunk):
     assert streamed.LAST_PEAK_DEVICE_BYTES > 0
     again = Groth16.prove(pk, circuit, device=cuda, backend="streamed")
     assert Groth16.verify_proof(pk.vk, again, circuit.get_public_inputs())
+
+
+def _golden_proof(proof):
+    rec = json.loads((GOLDEN / "chain254_proof.json").read_text())
+    want = rec["proof"]
+    assert proof.a == tuple(int(v, 16) for v in want["a"])
+    assert proof.b == tuple(tuple(int(v, 16) for v in c) for c in want["b"])
+    assert proof.c == tuple(int(v, 16) for v in want["c"])
+
+
+@pytest.mark.cuda
+def test_dist_ntt_rows_on_the_sharded_shapes(cuda):
+    """ntt_rows at the distributed witness map's 2^20 shapes over four shards
+    ((256, 1024) rows of shard 0): its DIF with the c = a o b pre, the middle
+    launch (the distributed twiddle pre, DIF, coset mid, DIT, twiddle post),
+    its DIT with the post-subtract, and the iFFT body's twiddle pre + DIF."""
+    from circom_compat_tpu_torch.parallel import ntt_sharded as ns
+
+    plan = ns.get_dist_plan(1 << 20, 4)
+    t = plan.shard_tables([torch.device("cuda", torch.cuda.current_device())] * 4, chain=True)[0]
+    nat = plan.shard_tables([torch.device("cuda", torch.cuda.current_device())] * 4)[0]
+    x, other = (_upper_lazy_words(256 * 1024, R_SCALAR, cuda).reshape(256, 1024, 8)
+                for _ in range(2))
+    cases = {
+        "dif_pre": dict(tw_dif=t["tw2_inv"], pre=other),
+        "middle": dict(pre=t["twi"], tw_dif=t["tw1_inv"], mid=t["coset"], tw_dit=t["tw1_fwd"],
+                       post=t["twf"]),
+        "dit_post_sub": dict(tw_dit=t["tw2_fwd"], post=other, post_op="sub"),
+        "ifft_twiddle_pre": dict(pre=nat["twiddle_inv"], tw_dif=nat["tw1_inv"]),
+    }
+    for mode, kw in cases.items():
+        assert torch.equal(fk.ntt_rows(x, **kw).cpu(), fk.ntt_rows_plain(x, **kw).cpu()), mode
+    plan.release()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_tree_fold_on_the_fold_shapes(cuda, g2):
+    """The cross-shard tree fold of K6/K7 adds over D = 4 shards' window
+    sums, (D, 4, W) G1 and (D, W) G2 points at W = 20 (window bits 13),
+    identity rows among them, equal to the fold of the plain add."""
+    from circom_compat_tpu_torch.parallel import mesh as pm
+
+    W = 20
+    shape = (4, 4, W) if not g2 else (4, W)
+    count = torch.Size(shape).numel()
+    _, pts = _points(g2, count)
+    _, qts = _points(g2, count)
+    p = _encode(g2, pts).to(cuda)
+    q = _encode(g2, qts).to(cuda)
+    vals = ck.point_add_plain(p, q.roll(1, 0)).reshape(shape + p.shape[1:]).contiguous()
+    vals.view(-1, *p.shape[1:])[5] = cv.proj_identity_const(g2, cuda)
+    got = pm.tree_fold(ck.point_add, vals, 4)
+    assert torch.equal(got.cpu(), pm.tree_fold(ck.point_add_plain, vals, 4).cpu())
+
+
+@pytest.mark.cuda
+def test_shard_sparse_eval_on_td_rows(cuda):
+    """One shard's sparse row evaluation over its TD rows (fr_binary mul and
+    the fr_tile_scan row sums) of a 2^12 chain over four shards, equal to
+    the plain versions."""
+    import types
+
+    from circom_compat_tpu_torch.models import groth16_device as gd
+    from circom_compat_tpu_torch.ops import ntt
+    from circom_compat_tpu_torch.parallel import ntt_sharded as ns
+    from circom_compat_tpu_torch.parallel import prove_sharded as ps
+    from circom_compat_tpu_torch.utils.chain import chain_matrices, chain_witness
+
+    k, D = (1 << 12) - 2, 4
+    plan = ns.get_dist_plan(1 << 12, D)
+    m = gd.DeviceMatrices.stage(chain_matrices(k), k, 2, 1 << 12, cuda)
+    (ar, ac, av), _ = ps._td_coo(types.SimpleNamespace(matrices=m), plan, D)
+    asg = fk.fr_to_mont(torch.from_numpy(gd.encode_assignment(chain_witness(k, 3))).to(cuda))
+    for d in range(D):
+        r, c, v = (torch.from_numpy(x[d]).to(cuda) for x in (ar, ac, av))
+        got = ntt.sparse_eval(r, c, v, asg, (1 << 12) // D, fk.KERNELS)
+        assert torch.equal(got.cpu(), ntt.sparse_eval(r, c, v, asg, (1 << 12) // D, fk.PLAIN).cpu())
+
+
+def _card_meshes():
+    from circom_compat_tpu_torch.parallel import mesh as pm
+
+    here = torch.device("cuda", torch.cuda.current_device())
+    meshes = {"one card repeated": pm.make_mesh(devices=[here] * 2)}
+    if torch.cuda.device_count() >= 2:
+        meshes["distinct cards"] = pm.make_mesh(2)
+    return meshes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist_ntt", [True, False], ids=["dist_ntt", "replicated"])
+def test_sharded_prove_chain254_golden_on_card(cuda, dist_ntt):
+    """prove_sharded over two shards on the card (and over two cards where
+    the machine has them) gives the golden proof, launching K1, K2, K3/K4,
+    K6/K7 and K8."""
+    from circom_compat_tpu_torch.circom.zkey import read_zkey
+    from circom_compat_tpu_torch.models import groth16_device as gd
+    from circom_compat_tpu_torch.parallel import prove_sharded as ps
+    from circom_compat_tpu_torch.utils.chain import chain_circuit
+
+    rec = json.loads((GOLDEN / "chain254_proof.json").read_text())
+    pk, m = read_zkey(GOLDEN / "chain254.zkey")
+    dpk = gd.DeviceProvingKey.build(pk, m, m.num_constraints, device=cuda)
+    for mesh in _card_meshes().values():
+        prover = ps.build_sharded_prover(dpk, mesh, dist_ntt=dist_ntt)
+        fk.reset_launches()
+        ck.reset_launches()
+        _golden_proof(ps.prove_sharded(dpk, prover, rec["r"], rec["s"],
+                                       chain_circuit(k=254, a=3).full_assignment()))
+        for name in ("fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid"):
+            assert fk.LAUNCHES[name] > 0, name
+        assert all(v > 0 for v in ck.LAUNCHES.values()), ck.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [100, 256])
+def test_streamed_sharded_chain254_golden_on_card(cuda, chunk):
+    """prove_streamed_sharded over two shards (each with its own pinned
+    buffers and copy stream) gives the golden proof, a chunk time pair a
+    part of a chunk."""
+    from circom_compat_tpu_torch.circom.zkey import read_zkey
+    from circom_compat_tpu_torch.models import streamed
+    from circom_compat_tpu_torch.parallel import streamed_sharded as ss
+    from circom_compat_tpu_torch.utils.chain import chain_circuit
+
+    rec = json.loads((GOLDEN / "chain254_proof.json").read_text())
+    pk, m = read_zkey(GOLDEN / "chain254.zkey")
+    spk = streamed.StreamedProvingKey.build(pk, m, m.num_constraints, chunk_points=chunk,
+                                            device=cuda)
+    for mesh in _card_meshes().values():
+        _golden_proof(ss.prove_streamed_sharded(spk, mesh, rec["r"], rec["s"],
+                                                chain_circuit(k=254, a=3).full_assignment()))
+        assert [len(v) for v in ss.LAST_CHUNK_MS.values()] == [-(-256 // chunk)] * 2
+        assert all(v > 0 for v in ss.LAST_PEAK_DEVICE_BYTES.values())
+
+
+@pytest.mark.cuda
+def test_shard_work_queues_without_a_host_sync(cuda):
+    """The sharded witness map and a shard's sorts and window sums queue
+    their kernels with no call that synchronizes the card
+    (torch.cuda.set_sync_debug_mode("error") raises on one), so the
+    per-shard loops over distinct cards overlap."""
+    from circom_compat_tpu_torch.circom.zkey import read_zkey
+    from circom_compat_tpu_torch.models import groth16_device as gd
+    from circom_compat_tpu_torch.ops import msm
+    from circom_compat_tpu_torch.parallel import mesh as pm
+    from circom_compat_tpu_torch.parallel import prove_sharded as ps
+    from circom_compat_tpu_torch.utils.chain import chain_circuit
+
+    pk, m = read_zkey(GOLDEN / "chain254.zkey")
+    dpk = gd.DeviceProvingKey.build(pk, m, m.num_constraints, device=cuda)
+    here = torch.device("cuda", torch.cuda.current_device())
+    prover = ps.build_sharded_prover(dpk, pm.make_mesh(devices=[here] * 2), dist_ntt=True)
+    words = torch.from_numpy(gd.encode_assignment(chain_circuit(k=254, a=3).full_assignment()))
+    asg = [pm.copy_to(words, d) for d in prover.mesh.devices]
+    prover.h_scalars(asg)  # warm: the constants are staged on first use
+    w = prover.window_bits
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = prover.h_scalars(asg)
+        sa = msm.window_orders(pm.rows_of([asg[0]], 0, 128, here), w)
+        sh = msm.window_orders(pm.rows_of(h, 0, 128, here), w)
+        g1 = msm.window_sums(list(prover.g1[0]), [sa, sa, sa, sh], w)
+        g2 = msm.window_sums([prover.g2[0]], [sa], w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert g1.shape[0] == 4 and g2.shape[0] == 1

@@ -114,6 +114,17 @@ def test_fr_to_from_mont_vs_pallas():
     assert back == [v * pow(MONT, -1, r) % r for v in _ints(lazy)]
 
 
+def test_const_words_are_staged_once_a_device():
+    """fr_to_mont / fr_from_mont and the curve's one read their constants
+    through const_words: one tensor a (field, value, device), equal to
+    words()."""
+    one = fl.FR.const_words(1, "cpu")
+    assert fl.FR.const_words(1, torch.device("cpu")) is one
+    assert fl.FR.const_words(1) is one
+    assert torch.equal(one, fl.FR.words(1))
+    assert not torch.equal(fl.FQ.const_words(fl.FQ.one_mont), fl.FR.const_words(fl.FR.one_mont))
+
+
 def test_fr_tile_scan_vs_pallas():
     """K2 plain version vs fr_tile_scan (block 128) in interpret mode."""
     T, K = 24, 16

@@ -142,6 +142,7 @@ def _imports(path):
 def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((REPO / "circom_compat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    assert {"mesh.py", "multihost.py"} <= {p.name for p in files if p.parent.name == "parallel"}
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
