@@ -63,6 +63,25 @@ Phases (each passes or raises; nothing is caught):
  11. the standalone msm_g1 / msm_g2 at 2^20 points of known discrete logs
      from phase 4's pools: equal to (sum s_i k_i) G, then points/s (median
      of 3 after the checked call);
+ 14. (run last) (a) the phase-2 ceremony at 2^20: one contribution with
+     fixed entropy to phase 7's key (L and H rescaled by s^-1 on the card:
+     scalar_mul_const through K6/K7, the batch inversion through K1): delta
+     equal to the host's, 64 sampled L and H rows equal to s^-1 P, a proof
+     under the new key verified and refused by the old vk; the rescale's
+     seconds for L and H, its launches and peak memory; (b) phase 6's
+     circuit set up on the card with delta = 1 and given two contributions:
+     section 10 through write_zkey / read_zkey, verify_mpc_chain True, False
+     for a tampered g1_sx and an unlinked delta, the CLI's contribute (0)
+     and verify-chain (0, and 1 on a tampered file); (c) ops/ntt fft, ifft
+     and coset_shift at 2^20, 2^13 (flat chain) and 2^9 against their plain
+     versions mod r, ifft(fft(x)) = x, fft against Horner at 16 points, with
+     times and launches; (d) the iFFT H scalars at the 2^20 domain equal to
+     the closed form word for word, each timed; (e) the signed-digit
+     msm_g1 / msm_g2 at 2^20 equal to the unsigned result and the
+     known-dlog sum, points/s of both; (f) evm.py: keccak vectors, ecPairing
+     on phase 6's proof as the verifier contract feeds it (and refusing a
+     tampered one), verify-onchain without the artifact raising
+     FileNotFoundError as the JAX CLI does.
  13. (run right after phase 4, on its key, assignment and r/s) the
      multi-device provers (parallel/) over a mesh of four entries that repeat
      the card (and over distinct cards, in turn, where the machine has two
@@ -95,7 +114,7 @@ operations an SM a clock, for the Montgomery products at 64); K1
 and K9 with the profiler's device time, every op a mode of its row. Each
 kernel's launches are counted on the path that
 runs it (phase 4, 6 or 7, or 8 for K9), the counts set to 0 just before;
-phases 9-12 count theirs the same way (launches_by_path on the kernels
+phases 9-14 count theirs the same way (launches_by_path on the kernels
 line), and each must launch every kernel of its path.
 The kernels line (JSON; the K6/K7 and K8 entries also carry ptxas's
 registers and spill bytes per mode, the K3/K4 entries each mode's numbers
@@ -562,6 +581,331 @@ def msm_phase(dev, card, ks, g1_pool, g2_pool, gen, on_path, n=1 << LOG_N):
         print(f"[11] msm_{tag} of {n} points (window bits {msm.pick_window_bits(n)}; launches "
               f"{json.dumps(launches)}): equals the known-dlog sum; median {med:.4f} s of "
               f"{[round(t, 4) for t in times]}: {n / med:.1f} points/s ({card})")
+
+
+def _g1_row(limbs, i):
+    """Row i of a (n, 2, 16) zkey section as a canonical affine point."""
+    from circom_compat_tpu_torch.constants import Q
+    from circom_compat_tpu_torch.ops import limbs as lc
+
+    x, y = (lc.limbs_to_int(c) for c in limbs[i])
+    if x == 0 and y == 0:
+        return None
+    rinv = pow(1 << 256, -1, Q)
+    return (x * rinv % Q, y * rinv % Q)
+
+
+def ceremony_phase(dev, card, work, pk, rows, circuit, asg, r, s, wbits, small_circuit, rng,
+                   on_path, samples=64):
+    """[14] (a) One contribution (fixed entropy) to phase 7's card-made key:
+    delta_g1 / delta_g2 equal the host's, `samples` L and H rows equal
+    s^-1 P on the host, a proof under the contributed key verifies and the
+    old vk refuses it; the rescale's seconds for L and H (trace stages), its
+    launches and peak device memory. (b) small_circuit set up on the card
+    with delta = 1, two contributions: write_zkey / read_zkey keep section
+    10, verify_mpc_chain is True, and False for a tampered g1_sx and an
+    unlinked delta; the CLI's contribute exits 0 and verify-chain 0 (1 on
+    a tampered file)."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from circom_compat_tpu_torch import cli
+    from circom_compat_tpu_torch.circom import contribute as tc
+    from circom_compat_tpu_torch.circom.zkey import read_zkey, verify_mpc_chain
+    from circom_compat_tpu_torch.circom.zkey_writer import write_zkey
+    from circom_compat_tpu_torch.constants import R_SCALAR as R
+    from circom_compat_tpu_torch.models import generate_parameters_from_matrices
+    from circom_compat_tpu_torch.models import groth16_device as gd
+    from circom_compat_tpu_torch.models.groth16 import Groth16
+    from circom_compat_tpu_torch.refmath import curve as rc
+    from circom_compat_tpu_torch.utils import trace
+
+    cuda = dev.type == "cuda"
+    entropy = b"chip_smoke ceremony"
+    secret = tc.derive_secret(entropy)
+    s_inv = pow(secret, -1, R)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with trace.collect() as tr:
+        t0 = time.perf_counter()
+        new, launches = on_path(f"ceremony_{pk.domain_size}", ["point_add_g1", "f_binary_fq"],
+                                lambda: tc.contribute(pk, entropy=entropy, name="chip", device=dev))
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    st = tr.as_dict()
+    print(f"[14] (a) contribute at domain {pk.domain_size} (L {len(pk.l_query)}, H "
+          f"{len(pk.h_query)} rows): {wall:.4f} s wall; rescale L {st['contribute.l_query']:.4f} s, "
+          f"H {st['contribute.h_query']:.4f} s ({card}); launches {json.dumps(launches)}; peak "
+          f"device memory {peak} B")
+    if new.delta_g1 != rc.G1.mul(pk.delta_g1, secret) or \
+            new.vk.delta_g2 != rc.G2.mul(pk.vk.delta_g2, secret):
+        raise AssertionError("the contributed delta differs from the host's")
+    for name in ("l_query", "h_query"):
+        old_sec, new_sec = getattr(pk, name).limbs, getattr(new, name).limbs
+        idx = sorted({0, len(old_sec) - 1} | {rng.randrange(len(old_sec)) for _ in range(samples - 2)})
+        for i in idx:
+            if _g1_row(new_sec, i) != rc.G1.mul(_g1_row(old_sec, i), s_inv):
+                raise AssertionError(f"{name} row {i} is not s^-1 P")
+    dpk = gd.DeviceProvingKey.from_matrix_rows(new, rows[0], rows[1], circuit.r1cs.num_inputs,
+                                               len(circuit.r1cs.constraints), device=dev)
+    proof = gd.prove_prepared(dpk, r, s, asg, wbits)
+    del dpk
+    if cuda:
+        torch.cuda.empty_cache()
+    public = circuit.get_public_inputs()
+    if not Groth16.verify_proof(new.vk, proof, public) or Groth16.verify_proof(pk.vk, proof, public):
+        raise AssertionError("the proof under the contributed key does not verify, or the old vk "
+                             "accepts it")
+    print(f"[14] (a) delta_g1 and delta_g2 equal the host's; {samples} sampled L and H rows each "
+          "equal s^-1 P; a proof under the contributed key verifies by pairing and the old vk "
+          "refuses it")
+
+    # (b) the chain from a delta-one key at the small circuit's domain
+    rows_s = small_circuit.to_matrices()
+    key = generate_parameters_from_matrices(
+        *rows_s, small_circuit.r1cs.num_inputs, small_circuit.r1cs.num_variables, device=dev,
+        alpha=rng.randrange(1, R), beta=rng.randrange(1, R), gamma=rng.randrange(1, R), delta=1,
+        t=rng.randrange(1, R))
+
+    def two():
+        k = key
+        for ent, name in ((b"first", "alice"), (b"second", "bob")):
+            k = tc.contribute(k, entropy=ent, name=name, device=dev)
+        return k
+
+    t0 = time.perf_counter()
+    chain, launches = on_path(f"ceremony_chain_{key.domain_size}", ["point_add_g1", "f_binary_fq"], two)
+    wall = time.perf_counter() - t0
+    nc = len(small_circuit.r1cs.constraints)
+    buf = io.BytesIO()
+    write_zkey(buf, chain, rows_s[0], rows_s[1], nc)
+    buf.seek(0)
+    back, _ = read_zkey(buf)
+    if dataclasses.asdict(back.mpc) != dataclasses.asdict(chain.mpc) or len(back.mpc.contributions) != 2:
+        raise AssertionError("write_zkey / read_zkey lost section 10")
+    if not verify_mpc_chain(back):
+        raise AssertionError("verify_mpc_chain refused a delta-one chain")
+    first = dataclasses.replace(back.mpc.contributions[0], g1_sx=back.delta_g1)
+    tampered = dataclasses.replace(back, mpc=dataclasses.replace(
+        back.mpc, contributions=[first, back.mpc.contributions[1]]))
+    g1_s = rc.G1.mul(rc.g1_generator(), 7)
+    forged = dataclasses.replace(back.mpc.contributions[1], g1_s=g1_s, g1_sx=rc.G1.mul(g1_s, 0xF00D),
+                                 g2_spx=rc.G2.mul(rc.g2_generator(), 0xF00D))
+    unlinked = dataclasses.replace(back, mpc=dataclasses.replace(
+        back.mpc, contributions=[back.mpc.contributions[0], forged]))
+    if verify_mpc_chain(tampered) or verify_mpc_chain(unlinked):
+        raise AssertionError("verify_mpc_chain accepted a tampered or unlinked chain")
+    print(f"[14] (b) two contributions at domain {key.domain_size} from a delta-one card setup: "
+          f"{wall:.4f} s ({card}); launches {json.dumps(launches)}; section 10 survives "
+          "write_zkey / read_zkey; the chain verifies, a tampered g1_sx and an unlinked delta do not")
+
+    f = {n: str(Path(work) / n) for n in ("c0.zkey", "c1.zkey", "bad.zkey")}
+    write_zkey(f["c0.zkey"], key, rows_s[0], rows_s[1], nc)
+    write_zkey(f["bad.zkey"], tampered, rows_s[0], rows_s[1], nc)
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = cli.main(argv)
+        return code, out.getvalue()
+
+    (code, _), launches = on_path("cli_contribute", ["point_add_g1", "f_binary_fq"], lambda: run(
+        ["contribute", f["c0.zkey"], f["c1.zkey"], "--name", "carol", "--entropy", "chip",
+         *([] if cuda else ["--device", "cpu"])]))
+    if code != 0 or run(["verify-chain", f["c1.zkey"]])[0] != 0:
+        raise AssertionError("the CLI's contribute or verify-chain failed")
+    if run(["verify-chain", f["bad.zkey"]]) != (1, "2 contribution(s): chain INVALID\n"):
+        raise AssertionError("the CLI's verify-chain accepted a tampered chain")
+    print(f"[14] (b) CLI: contribute exits 0 (on the card by default; launches "
+          f"{json.dumps(launches)}), verify-chain 0, and 1 on the tampered file")
+
+
+def transforms_phase(dev, card, gen, on_path, logs=(LOG_N, LOG_SMALL, 9), points=16):
+    """[14] (c) ops/ntt fft, ifft and coset_shift at each 2^log: equal to
+    their plain versions on the card mod r, ifft(fft(x)) = x, fft equal to
+    a host Horner evaluation at `points` sampled powers of the root; the
+    time (CUDA events) and launches of each."""
+    import torch
+
+    from circom_compat_tpu_torch.constants import R_SCALAR as R
+    from circom_compat_tpu_torch.constants import fr_root_of_unity
+    from circom_compat_tpu_torch.ops import field_kernels as fk
+    from circom_compat_tpu_torch.ops import limbs as lc
+    from circom_compat_tpu_torch.ops import ntt
+
+    for log in logs:
+        n = 1 << log
+        plan = ntt.NTTPlan(n)  # its own plan: get_plan's cache keeps the prove's
+        x = torch.randint(-2**31, 2**31, (n, 8), dtype=torch.int32, device=dev, generator=gen)
+        x[:, 7] = torch.remainder(x[:, 7].to(torch.int64), 0x30644E72).to(torch.int32)  # < r
+        x[:2] = 0
+        x[1, 0] = 1
+        flat = plan.chain == "flat"  # K5 + K3, the inverse's 1/n a K1 pass; else two K3
+        rows = ["fr_butterfly_stage", "ntt_rows_low"] if flat else ["ntt_rows_low"]
+        names = {"fft": rows, "ifft": rows + ["fr_binary"] * flat, "coset_shift": ["fr_binary"]}
+        shown, outs = {}, {}
+        for name in ("fft", "ifft", "coset_shift"):
+            fn = getattr(ntt, name)
+            got, launches = on_path(f"{name}_2^{log}", names[name], lambda: fn(plan, x))
+            want = fn(plan, x, ops=fk.PLAIN)
+            if max_abs_err(fk.fr_from_mont(got), fk.fr_from_mont(want)) != 0:
+                raise AssertionError(f"{name} at 2^{log} differs from its plain version mod r")
+            ms = timed(lambda: fn(plan, x), 10)[1] if dev.type == "cuda" else None
+            shown[name] = dict(ms=ms, launches=launches, chain=plan.chain,
+                               words_equal=max_abs_err(got, want) == 0)
+            outs[name] = got
+        back = ntt.ifft(plan, outs["fft"])
+        if max_abs_err(fk.fr_from_mont(back), fk.fr_from_mont(x)) != 0:
+            raise AssertionError(f"ifft(fft(x)) != x at 2^{log}")
+        coeffs = lc.words_to_ints(fk.fr_from_mont(x).cpu().numpy())
+        evals = lc.words_to_ints(fk.fr_from_mont(outs["fft"]).cpu().numpy())
+        w = fr_root_of_unity(n)
+        picks = torch.randint(0, n, (points - 2,), generator=torch.Generator().manual_seed(log))
+        ks = sorted({0, n - 1} | set(picks.tolist()))
+        pts = [pow(w, k, R) for k in ks]
+        acc = [0] * len(pts)
+        for c in reversed(coeffs):
+            acc = [(a * p + c) % R for a, p in zip(acc, pts)]
+        if acc != [evals[k] for k in ks]:
+            raise AssertionError(f"fft at 2^{log} differs from the host's Horner evaluation")
+        print(f"[14] (c) transforms at 2^{log} ({plan.chain} chain; {card}): equal to the plain "
+              f"versions mod r, ifft(fft(x)) = x, fft equal to Horner at {len(ks)} points; "
+              + json.dumps(shown))
+        plan.release()
+
+
+def h_scalars_phase(dev, card, rng, on_path, log_n=LOG_N):
+    """[14] (d) the iFFT H scalars at the 2^log_n domain (the iFFT at
+    2^(log_n + 1)) word for word against the closed form, with the time of
+    each."""
+    import torch
+
+    from circom_compat_tpu_torch.constants import R_SCALAR as R
+    from circom_compat_tpu_torch.models import setup as ts
+    from circom_compat_tpu_torch.ops import ntt
+
+    n = 1 << log_n
+    t, d = rng.randrange(2, R), rng.randrange(1, R)
+    t0 = time.perf_counter()
+    closed = ts._h_scalar_words(n, t, d, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    closed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    via_ifft, launches = on_path(f"h_scalars_ifft_2^{log_n}", ["ntt_rows_low", "fr_binary"],
+                                 lambda: ts._h_scalar_words_ifft(n, t, d, dev))
+    ifft_s = time.perf_counter() - t0
+    if max_abs_err(via_ifft, closed) != 0:
+        raise AssertionError("the iFFT H scalars differ from the closed form")
+    ntt.get_plan(2 * n).release()
+    print(f"[14] (d) H scalars at domain 2^{log_n}: the iFFT route (host powers, ifft at "
+          f"2^{log_n + 1}; launches {json.dumps(launches)}) equals the closed form word for word; "
+          f"iFFT route {ifft_s:.4f} s (host tables and powers included), closed form "
+          f"{closed_s:.4f} s ({card})")
+
+
+def signed_msm_phase(dev, card, ks, g1_pool, g2_pool, gen, on_path, n=1 << LOG_N):
+    """[14] (e) msm_g1 / msm_g2 with signed=True at n points of known
+    discrete logs (as phase 11): equal to the unsigned result and to
+    (sum s_i k_i) G; points/s signed and unsigned side by side (a record,
+    not a claim)."""
+    import torch
+
+    from circom_compat_tpu_torch.constants import R_SCALAR as R
+    from circom_compat_tpu_torch.ops import curve as cv
+    from circom_compat_tpu_torch.ops import limbs as lc
+    from circom_compat_tpu_torch.ops import msm
+    from circom_compat_tpu_torch.refmath import curve as rc
+
+    for g2, pool in ((False, g1_pool), (True, g2_pool)):
+        grp, base = (rc.G2, rc.g2_generator()) if g2 else (rc.G1, rc.g1_generator())
+        tag = "g2" if g2 else "g1"
+        pool_xy = torch.from_numpy(cv.encode_g2_affine(pool) if g2 else cv.encode_g1_affine(pool))
+        idx = torch.randint(0, len(pool), (n,), device=dev, generator=gen)
+        xy = pool_xy.to(dev)[idx]
+        xy[::997] = 0
+        sc = torch.randint(-2**31, 2**31, (n, 8), dtype=torch.int32, device=dev, generator=gen)
+        sc[:, 7] = torch.remainder(sc[:, 7].to(torch.int64), 0x30644E72).to(torch.int32)  # < r
+        dl = [ks[j] for j in idx.tolist()]
+        for i in range(0, n, 997):
+            dl[i] = 0
+        total = sum(a * b for a, b in zip(lc.words_to_ints(sc.cpu().numpy()), dl)) % R
+        fn = msm.msm_g2 if g2 else msm.msm_g1
+        got, launches = on_path(f"msm_{tag}_signed", [f"tile_scan_{tag}", f"point_add_{tag}",
+                                                      "f_binary_fq"],
+                                lambda: fn(xy, sc, device=dev, signed=True))
+        unsigned = fn(xy, sc, device=dev)
+        if got != unsigned or got != grp.mul(base, total):
+            raise AssertionError(f"signed msm_{tag} differs from the unsigned one or the known-dlog sum")
+        rates = {}
+        for signed in (True, False):
+            times = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                fn(xy, sc, device=dev, signed=signed)
+                times.append(time.perf_counter() - t1)
+            med = statistics.median(times)
+            rates["signed" if signed else "unsigned"] = dict(median_s=round(med, 4),
+                                                             points_per_s=round(n / med, 1))
+        print(f"[14] (e) msm_{tag} signed at {n} points (window bits {msm.pick_window_bits(n)}, "
+              f"{msm.bucket_count(msm.pick_window_bits(n), True)} buckets a window against "
+              f"{msm.bucket_count(msm.pick_window_bits(n))}; launches {json.dumps(launches)}): equals "
+              f"the unsigned result and the known-dlog sum; {json.dumps(rates)} ({card})")
+
+
+def _pairing_input(proof, vk, public):
+    """The ecPairing input of the Groth16 verifier contract: e(-A, B)
+    e(alpha, beta) e(vk_x, gamma) e(C, delta)."""
+    from circom_compat_tpu_torch.refmath import curve as rc
+
+    vk_x = vk.gamma_abc_g1[0]
+    for x, ic in zip(public, vk.gamma_abc_g1[1:]):
+        vk_x = rc.G1.add(vk_x, rc.G1.mul(ic, x))
+    words = []
+    for p1, p2 in ((rc.G1.neg(proof.a), proof.b), (vk.alpha_g1, vk.beta_g2), (vk_x, vk.gamma_g2),
+                   (proof.c, vk.delta_g2)):
+        (x0, x1), (y0, y1) = p2
+        words += [*p1, x1, x0, y1, y0]
+    return b"".join(v.to_bytes(32, "big") for v in words)
+
+
+def evm_phase(work, vk, proof, public):
+    """[14] (f) evm.py: the keccak vectors; ecPairing on the proof and vk as
+    the verifier contract feeds it (true; false with A not negated); the
+    CLI's verify-onchain without the verifier artifact raises
+    FileNotFoundError, as the JAX CLI does."""
+    from circom_compat_tpu_torch import cli, evm
+    from circom_compat_tpu_torch.models.groth16 import Proof
+    from circom_compat_tpu_torch.refmath import curve as rc
+
+    vectors = {b"": "c5d2460186f7233c927e7db2dcc703c0e500b653ca82273b7bfad8045d85a470",
+               b"abc": "4e03657aea45a94fc7d47ba826c8d667c0d1e6e33a64a036ec44f58fa12d6c45"}
+    if any(evm.keccak256(m).hex() != h for m, h in vectors.items()):
+        raise AssertionError("keccak256 vectors")
+    one, zero = (1).to_bytes(32, "big"), bytes(32)
+    t0 = time.perf_counter()
+    if evm._pre_ecpairing(_pairing_input(proof, vk, public)) != (True, one):
+        raise AssertionError("ecPairing refused the proof")
+    pairing_s = time.perf_counter() - t0
+    bad = Proof(a=rc.G1.neg(proof.a), b=proof.b, c=proof.c)
+    if evm._pre_ecpairing(_pairing_input(bad, vk, public)) != (True, zero):
+        raise AssertionError("ecPairing accepted a tampered proof")
+    f = {n: str(Path(work) / n) for n in ("vk.json", "public.json", "proof.json")}
+    Path(f["vk.json"]).write_text(json.dumps(cli._vk_to_json(vk)))
+    Path(f["public.json"]).write_text(json.dumps([str(v) for v in public]))
+    Path(f["proof.json"]).write_text(json.dumps(cli._proof_to_json(proof)))
+    try:
+        cli.main(["verify-onchain", f["vk.json"], f["public.json"], f["proof.json"]])
+    except FileNotFoundError as exc:
+        missing = exc.filename
+    else:
+        raise AssertionError("verify-onchain ran without the verifier artifact")
+    print(f"[14] (f) keccak256 vectors; ecPairing on the proof as the verifier contract feeds it: "
+          f"true ({pairing_s:.4f} s on the host), false for A not negated; verify-onchain without "
+          f"the artifact raises FileNotFoundError ({missing}), as the JAX CLI does")
 
 
 STREAMED_KERNELS = ["fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid", "point_add_g1",
@@ -1480,6 +1824,16 @@ def main() -> int:
                      ["fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid", *ck.LAUNCHES])
         cli_phase(card, work, pk6, rows6, cs, on_path)
     msm_phase(dev, card, ks, g1_pool, g2_pool, gen, on_path)
+
+    # ---- 14. the ceremony, the transforms, the iFFT H scalars, signed MSM, EVM
+    t14 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke") as work:
+        ceremony_phase(dev, card, work, pk7, rows, circuit, asg, r_, s_, wbits, cs, rng, on_path)
+        transforms_phase(dev, card, gen, on_path)
+        h_scalars_phase(dev, card, rng, on_path)
+        signed_msm_phase(dev, card, ks, g1_pool, g2_pool, gen, on_path)
+        evm_phase(work, pk6.vk, proof6, cs.get_public_inputs())
+    print(f"[14] phase wall {time.perf_counter() - t14:.1f} s")
 
     for name in ("ntt_rows_low", "ntt_rows_mid"):
         results[name].update(entry_kernels={f"ccf_ntt_rows_log{log}": r for log, r in ntt_res.items()})

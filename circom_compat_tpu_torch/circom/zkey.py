@@ -3,7 +3,8 @@
 Section layout: Header(1), HeaderGroth(2: n8q, q, n8r, r, nVars, nPub,
 domainSize, alpha_g1, beta_g1, beta_g2, gamma_g2, delta_g1, delta_g2), IC(3),
 Coefs(4), PointsA(5), PointsB1(6), PointsB2(7), PointsC(8), PointsH(9),
-Contributions(10, not read: the prover does not need it).
+Contributions(10: the phase-2 ceremony's circuit hash and contribution
+chain, read into ProvingKey.mpc; verify_mpc_chain checks the chain).
 
 Encoding rules:
   - Fq point coordinates are Montgomery form x*R mod q. The bulk sections
@@ -20,7 +21,7 @@ from __future__ import annotations
 import io
 import mmap
 import struct
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import cached_property
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
@@ -96,6 +97,35 @@ class VerifyingKey:
 
 
 @dataclass
+class Contribution:
+    """One phase-2 ceremony contribution (zkey section 10), in the layout of
+    snarkjs zkey_utils.js read/writeContribution: deltaAfter, the
+    contributor key (g1_s, g1_sx, g2_spx), a 64-byte transcript hash, a
+    type tag (0 = contribution, 1 = random beacon), then a sorted,
+    length-prefixed parameter list (1 = name, 2 = numIterationsExp,
+    3 = beaconHash)."""
+
+    delta_after: Optional[Tuple[int, int]]
+    g1_s: Optional[Tuple[int, int]]
+    g1_sx: Optional[Tuple[int, int]]
+    g2_spx: object
+    transcript: bytes  # 64-byte hash
+    contrib_type: int = 0
+    name: Optional[str] = None
+    num_iterations_exp: Optional[int] = None
+    beacon_hash: Optional[bytes] = None
+
+
+@dataclass
+class MPCParams:
+    """Zkey section 10: the 64-byte circuit hash and the contribution chain
+    (a fresh snarkjs key holds the hash and a count of 0)."""
+
+    cs_hash: bytes = b"\0" * 64
+    contributions: List[Contribution] = field(default_factory=list)
+
+
+@dataclass
 class ProvingKey:
     vk: VerifyingKey
     beta_g1: Optional[Tuple[int, int]]
@@ -108,6 +138,7 @@ class ProvingKey:
     n_vars: int
     n_public: int
     domain_size: int
+    mpc: Optional[MPCParams] = None  # section 10; None when the file has none
 
 
 @dataclass
@@ -255,7 +286,45 @@ class BinFile:
             l_query=self.g1_section(h.n_vars - h.n_public - 1, 8),
             h_query=self.g1_section(h.domain_size, 9),
             n_vars=h.n_vars, n_public=h.n_public, domain_size=h.domain_size,
+            mpc=self.mpc_params(),
         )
+
+    def mpc_params(self) -> Optional[MPCParams]:
+        """Section 10, or None when the file has none; a section shorter
+        than 68 bytes (a bare count, as older dev-written keys hold) reads
+        as an empty chain."""
+        if 10 not in self.sections:
+            return None
+        pos, size = self.sections[10]
+        if size < 68:
+            return MPCParams()
+        r = self._seek(10)
+        cs_hash = _read_exact(r, 64)
+        contributions = []
+        for _ in range(_u32(r)):
+            c = Contribution(delta_after=_read_g1(r), g1_s=_read_g1(r), g1_sx=_read_g1(r),
+                             g2_spx=_read_g2(r), transcript=_read_exact(r, 64),
+                             contrib_type=_u32(r))
+            param_end = _u32(r) + r.tell()
+            while r.tell() < param_end:
+                ptype = _u32(r)
+                if ptype == 1:  # name: a null-terminated string
+                    raw = bytearray()
+                    while (b := _read_exact(r, 1)) != b"\0":
+                        raw += b
+                    c.name = raw.decode("utf-8")
+                elif ptype == 2:
+                    c.num_iterations_exp = _u32(r)
+                elif ptype == 3:
+                    c.beacon_hash = _read_exact(r, 64)
+                else:
+                    raise ZKeyParseError(f"unknown contribution parameter {ptype}")
+            if r.tell() != param_end:
+                raise ZKeyParseError("contribution parameter length mismatch")
+            contributions.append(c)
+        if r.tell() > pos + size:
+            raise ZKeyParseError("section 10 overrun")
+        return MPCParams(cs_hash=cs_hash, contributions=contributions)
 
     def matrices(self) -> ConstraintMatrices:
         h = self.header
@@ -293,6 +362,42 @@ class BinFile:
             b_cols=entries["signal"][sel_b].astype(np.int64),
             b_values_mont=values_mont[sel_b],
         )
+
+
+def verify_mpc_chain(pk: ProvingKey) -> bool:
+    """Check the ceremony's contribution chain in pk.mpc on the host, with
+    O(#contributions) pairings:
+      - every contribution point is on its curve and in the right subgroup;
+      - each contributor key knows its secret s:
+        e(g1_sx, g2) == e(g1_s, g2_spx);
+      - the same s links the deltas: e(deltaAfter_i, g2) ==
+        e(deltaAfter_{i-1}, g2_spx_i), with deltaAfter_0 the G1 generator
+        (the delta of a fresh snarkjs key);
+      - the last deltaAfter is the key's delta_g1.
+    An empty or missing chain is valid. This is snarkjs `zkey verify`'s
+    per-link algebra for contributor keys based on the G2 generator (what
+    circom/contribute.py writes); checking against the ceremony's
+    powers-of-tau file is out of scope."""
+    from ..refmath import curve as rc
+    from ..refmath import pairing as rp
+
+    mpc = pk.mpc
+    if mpc is None or not mpc.contributions:
+        return True
+    g2_gen = rc.g2_generator()
+    delta_prev = rc.g1_generator()
+    for c in mpc.contributions:
+        for p in (c.delta_after, c.g1_s, c.g1_sx):
+            if p is not None and not rc.g1_in_correct_subgroup(p):
+                return False
+        if c.g2_spx is not None and not rc.g2_in_correct_subgroup(c.g2_spx):
+            return False
+        if rp.pairing(g2_gen, c.g1_sx) != rp.pairing(c.g2_spx, c.g1_s):
+            return False
+        if rp.pairing(g2_gen, c.delta_after) != rp.pairing(c.g2_spx, delta_prev):
+            return False
+        delta_prev = c.delta_after
+    return mpc.contributions[-1].delta_after == pk.delta_g1
 
 
 def read_zkey(path_or_reader) -> Tuple[ProvingKey, ConstraintMatrices]:

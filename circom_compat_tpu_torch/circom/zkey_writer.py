@@ -9,10 +9,11 @@ file and setup -> write_zkey -> read_zkey -> prove round-trips bit for bit:
   - section 4 includes the appended public-input rows (matrix 0,
     constraint num_constraints + i, signal i, value 1) that readers strip
     (reference: src/zkey.rs:171-175),
-  - section 10 (the ceremony's contributions) is the empty one snarkjs
-    writes for a fresh key: 64 zero bytes of circuit hash and a count of 0.
-The copy of circom_compat_tpu/circom/zkey_writer.py for keys without
-contributions.
+  - section 10 holds pk.mpc, the ceremony's circuit hash and contribution
+    chain in snarkjs's writeMPCParams layout (the inverse of
+    zkey.BinFile.mpc_params); a key without one gets the section snarkjs
+    writes for a fresh key, 64 zero bytes of circuit hash and a count of 0.
+The copy of circom_compat_tpu/circom/zkey_writer.py.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import BinaryIO, List, Tuple
 import numpy as np
 
 from ..constants import Q, R_SCALAR
-from .zkey import FIELD_BYTES, ZKEY_MAGIC, ProvingKey
+from .zkey import FIELD_BYTES, ZKEY_MAGIC, MPCParams, ProvingKey
 
 
 def _mont_q(v: int) -> bytes:
@@ -46,6 +47,34 @@ def _g2_bytes(p) -> bytes:
         return b"\0" * (4 * FIELD_BYTES)
     (x0, x1), (y0, y1) = p
     return _mont_q(x0) + _mont_q(x1) + _mont_q(y0) + _mont_q(y1)
+
+
+def _mpc_bytes(mpc) -> bytes:
+    """Section 10: the circuit hash and the contribution chain."""
+    if mpc is None:
+        mpc = MPCParams()
+    out = io.BytesIO()
+    out.write(mpc.cs_hash[:64].ljust(64, b"\0"))
+    out.write(struct.pack("<I", len(mpc.contributions)))
+    for c in mpc.contributions:
+        out.write(_g1_bytes(c.delta_after))
+        out.write(_g1_bytes(c.g1_s))
+        out.write(_g1_bytes(c.g1_sx))
+        out.write(_g2_bytes(c.g2_spx))
+        out.write(c.transcript[:64].ljust(64, b"\0"))
+        out.write(struct.pack("<I", c.contrib_type))
+        params = io.BytesIO()
+        if c.name is not None:
+            params.write(struct.pack("<I", 1))
+            params.write(c.name.encode("utf-8") + b"\0")
+        if c.num_iterations_exp is not None:
+            params.write(struct.pack("<II", 2, c.num_iterations_exp))
+        if c.beacon_hash is not None:
+            params.write(struct.pack("<I", 3))
+            params.write(c.beacon_hash[:64].ljust(64, b"\0"))
+        out.write(struct.pack("<I", len(params.getvalue())))
+        out.write(params.getvalue())
+    return out.getvalue()
 
 
 def _section(w: BinaryIO, sec_id: int, payload: bytes) -> None:
@@ -98,7 +127,7 @@ def write_zkey(path_or_buf, pk: ProvingKey, matrix_a: List[List[Tuple[int, int]]
     for sec_id, section in ((5, pk.a_query), (6, pk.b_g1_query), (7, pk.b_g2_query),
                             (8, pk.l_query), (9, pk.h_query)):
         _section(buf, sec_id, np.ascontiguousarray(section.limbs.astype("<u2")).tobytes())
-    _section(buf, 10, b"\0" * 64 + struct.pack("<I", 0))
+    _section(buf, 10, _mpc_bytes(pk.mpc))
 
     data = buf.getvalue()
     if hasattr(path_or_buf, "write"):

@@ -12,22 +12,32 @@
   python -m circom_compat_tpu_torch export-calldata <public.json> <proof.json>
   python -m circom_compat_tpu_torch r1cs-info <circuit.r1cs>
   python -m circom_compat_tpu_torch setup   <circuit.r1cs> <out.zkey> [vk.json] [--device cpu]
+  python -m circom_compat_tpu_torch contribute <in.zkey> <out.zkey> [--name N] [--entropy E] \
+                                            [--device cpu]
+  python -m circom_compat_tpu_torch verify-chain <circuit.zkey>
+  python -m circom_compat_tpu_torch verify-onchain <verification_key.json|circuit.zkey> \
+                                            <public.json> <proof.json> [--artifact A]
   python -m circom_compat_tpu_torch serve   <circuit.zkey> [--wasm W] [--socket S] [--device cpu]
   python -m circom_compat_tpu_torch prove-client [--witness W | --inputs I] [--socket S]
   python -m circom_compat_tpu_torch dist-dryrun [--processes N] [--local-devices M] \
                                             [--chain-k K] [--two-level] [--timeout S] \
                                             [--device cpu] [--backend nccl|gloo]
 
-Commands that prove or set up run on the card unless --device names another
+Commands that prove, set up or contribute run on the card unless --device names another
 device (--device cpu: every kernel wrapper's plain version); without a card
 the default raises. --backend streamed keeps the key's query sections on the
 host and sends them to the device in chunks (models/streamed.py), for keys
 larger than the card's memory. dist-dryrun proves a squaring chain in N
 local processes of M shards each (parallel/multihost.py) and checks their
 proofs against each other and the single-process prove; ranks that share a
-card must name --backend gloo. `--timings` before the command prints the
-stage table of utils/trace.py to stderr when the command finishes. proof.json / public.json / verification_key.json match
-snarkjs's JSON schema (decimal strings, G2 as [[c0,c1],...]).
+card must name --backend gloo. contribute applies one phase-2 ceremony
+contribution (circom/contribute.py) and verify-chain checks a key's
+contribution chain (zkey.verify_mpc_chain). verify-onchain runs the compiled
+Solidity verifier (the reference's verifier_artifact.json, --artifact) on the
+in-process EVM (evm.py). `--timings` before the command prints the
+stage table of utils/trace.py to stderr when the command finishes.
+proof.json / public.json / verification_key.json match snarkjs's JSON
+schema (decimal strings, G2 as [[c0,c1],...]).
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ import os
 import sys
 import tempfile
 from typing import List
+
+from .utils import paths
 
 DEFAULT_SOCKET = os.path.join(tempfile.gettempdir(), "circom_compat_prove.sock")
 
@@ -255,6 +267,61 @@ def cmd_setup(args) -> int:
     return 0
 
 
+def cmd_contribute(args) -> int:
+    """snarkjs `zkey contribute` equivalent (circom/contribute.py)."""
+    from .circom.contribute import contribute
+    from .circom.zkey import read_zkey
+    from .circom.zkey_writer import write_zkey
+
+    pk, matrices = read_zkey(args.zkey_in)
+    entropy = args.entropy.encode() if args.entropy else None
+    pk2 = contribute(pk, entropy=entropy, name=args.name, device=args.device)
+    write_zkey(args.zkey_out, pk2, matrices.a, matrices.b, matrices.num_constraints)
+    print(f"contribution #{len(pk2.mpc.contributions)} applied; wrote {args.zkey_out}")
+    print("note: contributor keys use the generator-based binding (g2_spx = G2*s); "
+          "`verify-chain` fully validates them, but snarkjs' own `zkey verify` binds g2_spx to "
+          "a hash-to-G2 of its transcript and will reject this chain (see "
+          "circom/contribute.py).")
+    return 0
+
+
+def cmd_verify_chain(args) -> int:
+    """Check the ceremony contribution chain in a zkey."""
+    from .circom.zkey import read_zkey, verify_mpc_chain
+
+    pk, _ = read_zkey(args.zkey)
+    n = len(pk.mpc.contributions) if pk.mpc else 0
+    ok = verify_mpc_chain(pk)
+    print(f"{n} contribution(s): " + ("chain OK" if ok else "chain INVALID"))
+    if ok and n:
+        print("note: checked contributor-key consistency + per-link delta pairings from the G1 "
+              "generator; ptau/transcript validation (snarkjs `zkey verify` vs the ceremony's "
+              "powers-of-tau) is out of scope without the original ptau file.")
+    return 0 if ok else 1
+
+
+def cmd_verify_onchain(args) -> int:
+    """Run the compiled Solidity Groth16 verifier on the in-process EVM
+    (evm.py) against a proof: the reference's tests/solidity.rs flow
+    without an external node. A missing artifact raises
+    FileNotFoundError."""
+    from . import ethereum as eth
+    from .evm import EVMError, check_proof_onchain, load_verifier
+
+    vk = _load_vk(args.vkey)
+    public = [int(v) for v in _load_json(args.public)]
+    proof = _proof_from_json(_load_json(args.proof))
+    vm = load_verifier(args.artifact)
+    try:
+        ok = check_proof_onchain(vm, eth.Inputs.from_fr(public), eth.Proof.from_ark(proof),
+                                 eth.VerifyingKey.from_ark(vk))
+    except EVMError as exc:
+        print(f"EVM {exc}")
+        return 1
+    print("OK! (on-chain)" if ok else "INVALID proof (on-chain)")
+    return 0 if ok else 1
+
+
 def cmd_serve(args) -> int:
     """Resident prove server: load and stage the key once, build the
     kernels and warm up, then serve proofs over a unix socket (server.py)."""
@@ -392,6 +459,27 @@ def main(argv=None) -> int:
     s.add_argument("vkey_out", nargs="?", default=None)
     _device_option(s)
     s.set_defaults(fn=cmd_setup)
+
+    c = sub.add_parser("contribute", help="apply a phase-2 ceremony contribution")
+    c.add_argument("zkey_in")
+    c.add_argument("zkey_out")
+    c.add_argument("--name", default="")
+    c.add_argument("--entropy", default=None, help="deterministic entropy (else urandom)")
+    _device_option(c)
+    c.set_defaults(fn=cmd_contribute)
+
+    vc = sub.add_parser("verify-chain", help="check the zkey contribution chain")
+    vc.add_argument("zkey")
+    vc.set_defaults(fn=cmd_verify_chain)
+
+    vo = sub.add_parser("verify-onchain",
+                        help="verify via the Solidity contract on the built-in EVM")
+    vo.add_argument("vkey", help="verification_key.json or .zkey")
+    vo.add_argument("public")
+    vo.add_argument("proof")
+    vo.add_argument("--artifact", default=str(paths.verifier_artifact()),
+                    help="solc/hardhat artifact with deployedBytecode")
+    vo.set_defaults(fn=cmd_verify_onchain)
 
     sv = sub.add_parser("serve", help="resident prove server: stage and warm up once, then "
                                       "serve proofs over a unix socket")

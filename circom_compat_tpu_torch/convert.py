@@ -15,6 +15,10 @@ Keys of the dict:
   beta_g2, gamma_g2, delta_g2             ((x0, x1), (y0, y1)) or None
   gamma_abc_g1                            list of G1 points
   n_vars, n_public, domain_size           ints
+  mpc (optional)                          None, or an object with cs_hash
+                                          (64 bytes) and contributions, each
+                                          with the fields of zkey.Contribution
+                                          (the other package's MPCParams will do)
 and for matrices_from_numpy:
   num_instance_variables, num_constraints ints
   a_rows, a_cols, b_rows, b_cols          (nnz,) integers
@@ -27,7 +31,8 @@ from typing import Mapping
 
 import numpy as np
 
-from .circom.zkey import ConstraintMatrices, G1Section, G2Section, ProvingKey, VerifyingKey
+from .circom.zkey import (ConstraintMatrices, Contribution, G1Section, G2Section, MPCParams,
+                          ProvingKey, VerifyingKey)
 from .ops import limbs as limb_codec
 
 
@@ -48,6 +53,18 @@ def _g2(p):
     return None if p is None else ((int(p[0][0]), int(p[0][1])), (int(p[1][0]), int(p[1][1])))
 
 
+def _mpc(m):
+    """Section 10 carried across field by field, points as int tuples."""
+    if m is None:
+        return None
+    fields = ("contrib_type", "name", "num_iterations_exp", "beacon_hash")
+    return MPCParams(cs_hash=bytes(m.cs_hash), contributions=[
+        Contribution(delta_after=_g1(c.delta_after), g1_s=_g1(c.g1_s), g1_sx=_g1(c.g1_sx),
+                     g2_spx=_g2(c.g2_spx), transcript=bytes(c.transcript),
+                     **{f: getattr(c, f) for f in fields})
+        for c in m.contributions])
+
+
 def proving_key_from_numpy(d: Mapping) -> ProvingKey:
     n_vars, n_public, domain = int(d["n_vars"]), int(d["n_public"]), int(d["domain_size"])
     vk = VerifyingKey(
@@ -61,7 +78,7 @@ def proving_key_from_numpy(d: Mapping) -> ProvingKey:
         b_g2_query=G2Section(_limbs(d["b_g2_query"], 4, "b_g2_query")),
         h_query=G1Section(_limbs(d["h_query"], 2, "h_query")),
         l_query=G1Section(_limbs(d["l_query"], 2, "l_query")),
-        n_vars=n_vars, n_public=n_public, domain_size=domain,
+        n_vars=n_vars, n_public=n_public, domain_size=domain, mpc=_mpc(d.get("mpc")),
     )
     if len(vk.gamma_abc_g1) != n_public + 1:
         raise ValueError("gamma_abc_g1 must hold n_public + 1 points")

@@ -11,7 +11,9 @@ can be proved without a snarkjs .zkey. The CircomReduction pieces:
   L_{nc+i}(t). Host Python (qap_instance_map).
 - h_query scalars: delta^-1 t^i Lagrange-ified over the 2x domain, odd
   coefficients (reference: src/circom/qap.rs:90-105), computed in closed
-  form on the card (_h_scalar_words).
+  form on the card (_h_scalar_words), or for a domain that is not a power
+  of two as the 2x iFFT itself (_h_scalar_words_ifft, the closed form's
+  parity oracle).
 
 generate_parameters_from_matrices runs the ~5 n_vars generator multiples
 on the card (ops/fixed_base.py) and certifies every section before it
@@ -157,12 +159,14 @@ def _h_scalar_words(domain_size: int, t: int, delta_inverse: int, device) -> tor
     so the odd coefficients k = 2j + 1 are two geometric ladders (bit b of
     j selects a multiply by a power, as torch.where over Fr binary
     launches) and one batch inversion (prefix and suffix product scans and
-    one host inverse). The JAX package's iFFT variant (its parity oracle
-    and non-power-of-two fallback) is not ported: domain sizes are powers
-    of two (qap.domain_size_for)."""
+    one host inverse). A domain that is not a power of two (which
+    qap.domain_size_for never gives) takes _h_scalar_words_ifft, as in the
+    JAX package."""
     n = domain_size
-    if n < 1 or n & (n - 1):
-        raise ValueError(f"setup: domain size {n} is not a power of two")
+    if n < 1:
+        raise ValueError(f"setup: domain size {n}")
+    if n & (n - 1):
+        return _h_scalar_words_ifft(domain_size, t, delta_inverse, device)
     N = 2 * n
     tm = t % R_SCALAR
     if pow(tm, N, R_SCALAR) == 1:
@@ -201,6 +205,25 @@ def _h_scalar_words(domain_size: int, t: int, delta_inverse: int, device) -> tor
     del pre, suf
     num = ladder(c_num, rho)
     return fk.fr_from_mont(fk.fr_binary("mul", fk.fr_binary("mul", num, inv_den), enc(scale)))
+
+
+def _h_scalar_words_ifft(domain_size: int, t: int, delta_inverse: int, device) -> torch.Tensor:
+    """qap.h_query_scalars as the reference computes them, on `device`: the
+    geometric powers delta^-1 t^i (i < 2 domain_size - 1, zero-padded to a
+    power of two) on the host, their iFFT through ops/ntt.ifft, the odd
+    coefficients as (size / 2, 8) canonical plain Fr words. The
+    counterpart of the JAX package's _h_scalar_limbs_device_ifft."""
+    from ..ops import ntt
+
+    count = 2 * (domain_size - 1) + 1
+    size = 1 << max(count - 1, 1).bit_length()
+    powers, acc, tm = [], delta_inverse % R_SCALAR, t % R_SCALAR
+    for _ in range(count):
+        powers.append(acc)
+        acc = acc * tm % R_SCALAR
+    words = torch.from_numpy(fl.encode_plain(powers + [0] * (size - count))).to(device)
+    coeffs = ntt.ifft(ntt.get_plan(size), fk.fr_to_mont(words))
+    return fk.fr_from_mont(coeffs[1::2].contiguous())
 
 
 class SetupSelfCheckError(AssertionError):

@@ -1,5 +1,6 @@
-"""Fixed-base point generation and batch projective -> affine conversion on
-the card, for the trusted setup (models/setup.py).
+"""Fixed-base point generation, one scalar's multiple of many points, and
+batch projective -> affine conversion on the card, for the trusted setup
+(models/setup.py) and the phase-2 ceremony (circom/contribute.py).
 
 The setup computes about 5 n_vars generator multiples (G1 * s_i and
 G2 * s_i for the QAP evaluations of every variable). The windowed
@@ -9,6 +10,12 @@ fixed-base method does them on the card:
          built once per group and staged once per device;
   card:  out_i = sum_w T[w][digit_w(s_i)], a gather of table rows and one
          mixed point add (point_add, K6/K7) per window over all scalars.
+
+The ceremony multiplies every point of a query section by one host scalar
+k (scalar_mul_const): MSB-first double-and-add over the whole section, the
+doubling a general point_add of the running sum with itself (the complete
+formulas double), the add a mixed point_add only where a bit of k is one,
+so about bit_length(k) + popcount(k) launches and no select.
 
 The projective sums become the zkey's affine Montgomery coordinates through
 Montgomery's batch inversion: prefix and suffix product scans (Hillis-
@@ -142,6 +149,26 @@ def g2_proj_to_affine(points: torch.Tensor) -> torch.Tensor:
     xy = torch.stack((canon(fq2_mul(X, zinv)), canon(fq2_mul(Y, zinv))), dim=1)
     inf = (Z == 0).flatten(1).all(-1)[:, None, None, None]
     return torch.where(inf, torch.zeros_like(xy), xy)
+
+
+def scalar_mul_const(points: torch.Tensor, k: int) -> torch.Tensor:
+    """k * P for every point of (n, 3, 8) G1 or (n, 3, 2, 8) G2 words that
+    are affine-encoded (Z one, or the identity: cv.affine_to_proj), k a
+    host int >= 0; projective (lazy) out. The counterpart of the JAX
+    package's curve_jax.scalar_mul_const."""
+    if k < 0:
+        raise ValueError("scalar_mul_const takes k >= 0")
+    g2 = ck.is_g2(points)
+    if k == 0:
+        ident = cv.proj_identity_const(g2, points.device)
+        return ident.expand(points.shape).contiguous()
+    points = points.contiguous()
+    acc = points.clone()
+    for bit in bin(k)[3:]:  # the top bit is the starting copy
+        acc = ck.point_add(acc, acc)
+        if bit == "1":
+            acc = ck.point_add(acc, points, mixed=True)
+    return acc
 
 
 # ---------------------------------------------------------------------------

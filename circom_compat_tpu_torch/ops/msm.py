@@ -16,6 +16,15 @@ the projective-to-affine inversion happens anyway.
 msm_g1 / msm_g2 are the standalone MSMs: one vector of points and scalars,
 the window sums on the card unless the caller names another device, the
 fold on the host.
+
+signed=True (off by default, as in the JAX package, where unsigned digits
+won on its accelerator) recodes each window but the top one to a digit d in
+[-2^(w-1), 2^(w-1)] (window_digits_signed) and keys the buckets by |d|: a
+negative digit negates y on the gathered affine row (an Fq subtract from
+zero, K1) before the projective encode, all-zero (infinity) rows stay as
+they are, and the key stride covers both |d| <= 2^(w-1) and the unsigned
+top window's digit plus its carry (bucket_count). The prove's shared
+assignment sort (window_orders) stays unsigned.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from ..refmath import curve as rc
 from . import curve as cv
 from . import curve_kernels as ck
 from . import field as fl
+from . import field_kernels as fk
 from . import segments
 
 SCALAR_BITS = 254  # BN254 Fr
@@ -61,6 +71,43 @@ def window_digits(scalars: torch.Tensor, window_bits: int) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def window_digits_signed(scalars: torch.Tensor, window_bits: int) -> torch.Tensor:
+    """(N, 8) canonical plain words -> (W, N) int64 signed digits: below the
+    top window a digit >= 2^(w-1) becomes d - 2^w and carries 1 into the
+    next window; the top window stays unsigned and takes the last carry
+    (BN254 scalars are < 2^254, so it fits)."""
+    d = window_digits(scalars, window_bits)
+    half, full = 1 << (window_bits - 1), 1 << window_bits
+    carry = torch.zeros_like(d[0])
+    rows = []
+    for row in d[:-1]:
+        row = row + carry
+        neg = row >= half
+        rows.append(torch.where(neg, row - full, row))
+        carry = neg.to(row.dtype)
+    rows.append(d[-1] + carry)
+    return torch.stack(rows)
+
+
+def bucket_count(window_bits: int, signed: bool = False) -> int:
+    """Buckets a window (the key stride B): 2^w unsigned; signed, |d| in
+    [0, 2^(w-1)] and the unsigned top window's digit plus carry, up to
+    2^(top bits)."""
+    if not signed:
+        return 1 << window_bits
+    top_bits = SCALAR_BITS - (num_windows(window_bits) - 1) * window_bits
+    return max(1 << (window_bits - 1), 1 << top_bits) + 1
+
+
+def window_orders_signed(scalars: torch.Tensor, window_bits: int):
+    """(orders, keys, negs), each (W, N): keys[w] the sorted |digits| of
+    window w, orders[w] the stable argsort that sorts them and negs[w]
+    where the sorted digit is negative."""
+    d = window_digits_signed(scalars, window_bits)
+    keys, orders = torch.sort(d.abs(), dim=1, stable=True)
+    return orders, keys, torch.gather(d, 1, orders) < 0
+
+
 def window_orders(scalars: torch.Tensor, window_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(orders, keys), both (W, N) int64: keys[w] the sorted digits of
     window w and orders[w] the stable argsort that sorts them."""
@@ -77,24 +124,44 @@ def _general_scan(vt, ft):
     return ck.point_tile_scan(vt, ft, mixed=False)
 
 
-def bucket_sums(xys: Sequence[torch.Tensor], sorts: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                window_bits: int) -> torch.Tensor:
+def _negate_rows(rows: torch.Tensor, negs: torch.Tensor) -> torch.Tensor:
+    """Gathered affine rows with y negated where negs holds (an Fq subtract
+    from zero, lazy); all-zero rows (infinity) stay zero."""
+    y = rows.select(1, 1)
+    neg_y = fk.fr_binary("sub", torch.zeros_like(y), y.contiguous(), fl.FQ)
+    inf = (rows == 0).flatten(1).all(-1)
+    keep = (~negs | inf).reshape((-1,) + (1,) * (y.dim() - 1))
+    return torch.stack((rows.select(1, 0), torch.where(keep, y, neg_y)), dim=1)
+
+
+def bucket_sums(xys: Sequence[torch.Tensor], sorts: Sequence[tuple], window_bits: int,
+                signed: bool = False) -> torch.Tensor:
     """(M, W, B, *point) bucket sums of M MSMs over one group, all in ONE
-    segmented reduce: MSM m's window w takes keys (m * W + w) * B + digit.
-    xys[m]: affine points, (N_m, 2, 8) G1 or (N_m, 2, 2, 8) G2 Montgomery
-    words with zero rows for infinity; sorts[m]: its (orders, keys)."""
+    segmented reduce: MSM m's window w takes keys (m * W + w) * B + digit,
+    B = bucket_count(window_bits, signed). xys[m]: affine points, (N_m, 2,
+    8) G1 or (N_m, 2, 2, 8) G2 Montgomery words with zero rows for
+    infinity; sorts[m]: its (orders, keys) from window_orders, or with
+    signed=True its (orders, keys, negs) from window_orders_signed."""
     g2 = xys[0].dim() == 4
     W = sorts[0][0].shape[0]
-    B = 1 << window_bits
+    B = bucket_count(window_bits, signed)
     M = len(xys)
-    sizes = [o.numel() for o, _ in sorts]
+    sizes = [s[0].numel() for s in sorts]
     dev = xys[0].device
     pts = torch.empty((sum(sizes),) + (3,) + xys[0].shape[2:], dtype=torch.int32, device=dev)
     gkeys = torch.empty(sum(sizes), dtype=torch.int64, device=dev)
     off = 0
-    for m, (xy, (orders, keys)) in enumerate(zip(xys, sorts)):
+    for m, (xy, sort) in enumerate(zip(xys, sorts)):
+        if len(sort) != (3 if signed else 2):
+            raise ValueError("signed bucket sums take (orders, keys, negs) sorts, unsigned "
+                             "(orders, keys)")
+        orders, keys = sort[0], sort[1]
         n = sizes[m]
-        pts[off : off + n] = cv.affine_to_proj(xy[orders.reshape(-1)], g2)
+        rows = xy[orders.reshape(-1)]
+        if signed:
+            rows = _negate_rows(rows, sort[2].reshape(-1))
+        pts[off : off + n] = cv.affine_to_proj(rows, g2)
+        del rows  # W * N_m gathered rows: not held through the reduce below
         base = (m * W + torch.arange(W, device=dev)) * B
         gkeys[off : off + n] = (keys + base[:, None]).reshape(-1)
         off += n
@@ -124,9 +191,9 @@ def scan_buckets(buckets: torch.Tensor) -> torch.Tensor:
     return sums.reshape(lead + sums.shape[1:])
 
 
-def window_sums(xys, sorts, window_bits: int) -> torch.Tensor:
+def window_sums(xys, sorts, window_bits: int, signed: bool = False) -> torch.Tensor:
     """(M, W, *point) Pippenger window sums of M MSMs over one group."""
-    return scan_buckets(bucket_sums(xys, sorts, window_bits))
+    return scan_buckets(bucket_sums(xys, sorts, window_bits, signed))
 
 
 def fold_windows_host(window_pts: List, curve_ops, window_bits: int):
@@ -140,7 +207,8 @@ def fold_windows_host(window_pts: List, curve_ops, window_bits: int):
     return acc
 
 
-def _msm(xy: torch.Tensor, scalars, g2: bool, window_bits: Optional[int], device):
+def _msm(xy: torch.Tensor, scalars, g2: bool, window_bits: Optional[int], device,
+         signed: bool = False):
     """sum_i s_i P_i over affine Montgomery words (zero rows for infinity):
     the window sums of one bucket reduce on `device`, the Horner fold on the
     host. scalars: N ints, or (N, 8) int32 canonical words (< r)."""
@@ -160,19 +228,23 @@ def _msm(xy: torch.Tensor, scalars, g2: bool, window_bits: Optional[int], device
         sc = torch.from_numpy(fl.encode_plain(list(scalars)[:n])).to(dev)
     if window_bits is None:
         window_bits = pick_window_bits(n)
-    sums = window_sums([xy.to(dev, torch.int32)], [window_orders(sc, window_bits)],
-                       window_bits)[0]
+    orders = window_orders_signed if signed else window_orders
+    sums = window_sums([xy.to(dev, torch.int32)], [orders(sc, window_bits)], window_bits,
+                       signed)[0]
     decoded = cv.decode_g2_proj(sums) if g2 else cv.decode_g1_proj(sums)
     return fold_windows_host(decoded, rc.G2 if g2 else rc.G1, window_bits)
 
 
-def msm_g1(points_xy: torch.Tensor, scalars, window_bits: Optional[int] = None, device=None):
+def msm_g1(points_xy: torch.Tensor, scalars, window_bits: Optional[int] = None, device=None,
+           signed: bool = False):
     """G1 MSM: (N, 2, 8) affine Montgomery words and N scalars -> the affine
-    sum (x, y), or None for infinity or empty input."""
-    return _msm(points_xy, scalars, False, window_bits, device)
+    sum (x, y), or None for infinity or empty input. signed=True takes
+    signed window digits."""
+    return _msm(points_xy, scalars, False, window_bits, device, signed)
 
 
-def msm_g2(points_xy: torch.Tensor, scalars, window_bits: Optional[int] = None, device=None):
+def msm_g2(points_xy: torch.Tensor, scalars, window_bits: Optional[int] = None, device=None,
+           signed: bool = False):
     """G2 MSM: (N, 2, 2, 8) affine Montgomery words and N scalars -> the
     affine sum ((x0, x1), (y0, y1)), or None."""
-    return _msm(points_xy, scalars, True, window_bits, device)
+    return _msm(points_xy, scalars, True, window_bits, device, signed)

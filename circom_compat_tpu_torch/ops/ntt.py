@@ -34,6 +34,16 @@ kernel:
 Below FLAT_MIN the JAX package runs plain XLA; the port keeps its kernels
 there. Transposes are torch ops. Output is lazy [0, 2p); consumers
 canonicalize.
+
+The standalone transforms fft, ifft and coset_shift take and return
+natural order, as the JAX package's (its ntt_core_batched with the plan's
+bit reversal). They run on the same chains with one-directional tables
+(NTTPlan.host_tables("fft" / "ifft" / "coset")): the flat chain's DIF
+(one fr_butterfly_stages launch and one row launch) or the four-step
+chain's two DIF row launches (the middle twiddle, with 1/n for the
+inverse, as the first one's post-multiply), then one gather that puts the
+bit-reversed output back in natural order, since no DIT follows to undo
+it. The flat chain's 1/n and every coset multiply are fr_binary passes.
 """
 
 from __future__ import annotations
@@ -125,7 +135,30 @@ class NTTPlan:
         tbl = _power_table(fr_root_of_unity(2 * self.n), self.n, pow(self.n, -1, R_SCALAR))
         return tbl[_rev(self.n)]
 
+    def _transform_tables(self, inverse: bool) -> Dict[str, np.ndarray]:
+        """One direction's tables of a standalone transform on this size's
+        chain, with `perm`, the gather that takes the DIF's output to
+        natural order."""
+        if self.chain == "flat":
+            out = {"tw": self._row_table(self.n, inverse),
+                   "low": self._row_table(LOW_BLOCK, inverse), "perm": _rev(self.n)}
+            if inverse:
+                out["n_inv"] = _power_table(1, 1, pow(self.n, -1, R_SCALAR))[0]
+            return out
+        k = np.arange(self.n)
+        # k = k1 + n1 k2 sits at row rev1(k1), column rev2(k2) of the (n1, n2) output
+        perm = _rev(self.n1)[k % self.n1] * self.n2 + _rev(self.n2)[k // self.n1]
+        return {"tw1": self._row_table(self.n1, inverse), "tw2": self._row_table(self.n2, inverse),
+                "t3": self._t3(inverse), "perm": perm}
+
     def host_tables(self, chain: str) -> Dict[str, np.ndarray]:
+        """The tables of the witness map's chain ("flat" or "four_step"),
+        or of a standalone transform ("fft", "ifft") or coset shift
+        ("coset")."""
+        if chain in ("fft", "ifft"):
+            return self._transform_tables(chain == "ifft")
+        if chain == "coset":
+            return {"coset": _power_table(fr_root_of_unity(2 * self.n), self.n)}
         if chain == "flat":
             if self.n < 2 * LOW_BLOCK:
                 raise ValueError(f"the flat chain needs n >= {2 * LOW_BLOCK}")
@@ -147,8 +180,8 @@ class NTTPlan:
         }
 
     def tables(self, device, chain: Optional[str] = None) -> Dict[str, torch.Tensor]:
-        """The tables of `chain` ("flat" or "four_step"; default the chain
-        this size takes) on `device`, staged on first use."""
+        """The tables of `chain` (host_tables; default the chain this size
+        takes) on `device`, staged on first use."""
         chain = chain or self.chain
         key = (str(torch.device(device)), chain)
         if key not in self._staged:
@@ -269,3 +302,42 @@ def witness_map_four_step(plan: NTTPlan, a: torch.Tensor, b: torch.Tensor, ops=f
     ab6 = rows(b5, tw_dit=tb["tw1_fwd"], pre=tb["t3_fwd"], post=a6)
     res = rows(c5, tw_dit=tb["tw1_fwd"], pre=tb["t3_fwd"], post=ab6, post_op="sub")
     return t_n2major(res).reshape(n, 8)
+
+
+def _transform(plan: NTTPlan, x: torch.Tensor, inverse: bool, ops) -> torch.Tensor:
+    n = plan.n
+    if tuple(x.shape) != (n, 8):
+        raise ValueError(f"expected ({n}, 8) words, got {tuple(x.shape)}")
+    tb = plan.tables(x.device, "ifft" if inverse else "fft")
+    x = x.contiguous()
+    if plan.chain == "flat":
+        y = ntt_flat_dif(x, tb["tw"], tb["low"], ops)
+    else:
+        n1, n2 = plan.n1, plan.n2
+        y = ops.ntt_rows(x.reshape(n1, n2, 8).transpose(0, 1).contiguous(), tw_dif=tb["tw1"],
+                         post=tb["t3"])
+        y = ops.ntt_rows(y.transpose(0, 1).contiguous(), tw_dif=tb["tw2"])
+    y = y.reshape(n, 8)[tb["perm"]]
+    if inverse and plan.chain == "flat":
+        y = ops.fr_binary("mul", y, tb["n_inv"])
+    return y
+
+
+def fft(plan: NTTPlan, coeffs: torch.Tensor, ops=fk.KERNELS) -> torch.Tensor:
+    """Coefficients -> evaluations [p(w^0), p(w^1), ...], (n, 8) Montgomery
+    words in natural order in and out (lazy out)."""
+    return _transform(plan, coeffs, False, ops)
+
+
+def ifft(plan: NTTPlan, evals: torch.Tensor, ops=fk.KERNELS) -> torch.Tensor:
+    """Evaluations -> coefficients, the inverse of fft (1/n included)."""
+    return _transform(plan, evals, True, ops)
+
+
+def coset_shift(plan: NTTPlan, coeffs: torch.Tensor, ops=fk.KERNELS) -> torch.Tensor:
+    """coeffs[i] *= g^i with g the 2n-th root of unity: arkworks'
+    distribute_powers (reference: src/circom/qap.rs:69-70); one fr_binary
+    pass."""
+    if tuple(coeffs.shape) != (plan.n, 8):
+        raise ValueError(f"expected ({plan.n}, 8) words, got {tuple(coeffs.shape)}")
+    return ops.fr_binary("mul", coeffs.contiguous(), plan.tables(coeffs.device, "coset")["coset"])

@@ -277,6 +277,10 @@ class FixedBaseLadder:
         return c.jac_to_affine(acc)
 
 
+def g1_in_correct_subgroup(p) -> bool:
+    return G1.is_on_curve(p)
+
+
 def g2_in_correct_subgroup(p) -> bool:
     # [r]p computed in Jacobian: infinity shows up as None (cancellation in
     # jac_add) with no inversion needed at all.

@@ -3,8 +3,10 @@ PyTorch version on the same CUDA tensors, word for word, the chain254
 golden proof proved on the card, setup -> prove -> verify at a 2^13
 domain (the flat NTT chain) on the card, the standalone msm_g1 / msm_g2 at
 2^12 points against a known-dlog sum, Groth16.prove of the chain254
-circuit, and the streamed prover's chain254 golden proof at several chunk
-sizes (pinned buffers and the copy stream on the card).
+circuit, the streamed prover's chain254 golden proof at several chunk
+sizes (pinned buffers and the copy stream on the card), the ceremony's
+scalar_mul_const and contribute, the standalone fft / ifft / coset_shift
+and the signed-digit MSM.
 
 They need an NVIDIA GPU and skip without one. On a machine with a card:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider tests/test_torch_cuda.py
@@ -628,3 +630,76 @@ def test_shard_work_queues_without_a_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert g1.shape[0] == 4 and g2.shape[0] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 1000])
+def test_scalar_mul_const(cuda, n):
+    """The ceremony's double-and-add (K6/K7) against its plain version and
+    the host, infinity rows included; k = 0 and k = 1 too."""
+    from circom_compat_tpu_torch.ops import fixed_base as fb
+
+    pts = [rc.G1.mul(rc.g1_generator(), RNG.randrange(1, R_SCALAR)) for _ in range(n)]
+    pts[n // 2] = None
+    proj = cv.affine_to_proj(torch.from_numpy(cv.encode_g1_affine(pts)).to(cuda), False)
+    for k in (0, 1, 2, RNG.randrange(R_SCALAR)):
+        ck.reset_launches()
+        got = fb.scalar_mul_const(proj, k)
+        assert k < 2 or ck.LAUNCHES["point_add_g1"] > 0
+        _same(got, fb.scalar_mul_const(proj.cpu(), k))  # the plain version on the CPU
+        assert cv.decode_g1_proj(got) == [rc.G1.mul(p, k) if p else None for p in pts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [1, 5, 9, 10, 13, 14, 21])
+def test_transforms(cuda, log_n):
+    """fft, ifft and coset_shift on the card against their plain versions
+    (mod r) and ifft(fft(x)) = x."""
+    from circom_compat_tpu_torch.ops import ntt
+
+    n = 1 << log_n
+    plan = ntt.NTTPlan(n)
+    x = _lazy_words(n, R_SCALAR, cuda) if n >= 4 else torch.from_numpy(
+        lc.ints_to_words([3, R_SCALAR - 1][:n])).to(cuda)
+    for name in ("fft", "ifft", "coset_shift"):
+        fn = getattr(ntt, name)
+        got, want = fn(plan, x), fn(plan, x, ops=fk.PLAIN)
+        _same(fk.fr_from_mont(got), fk.fr_from_mont(want))
+    _same(fk.fr_from_mont(ntt.ifft(plan, ntt.fft(plan, x))), fk.fr_from_mont(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_signed_msm(cuda, g2):
+    """msm_g1 / msm_g2 with signed digits at 2^12 points equal the unsigned
+    result, infinity rows included, at w = 2 and the default width."""
+    from circom_compat_tpu_torch.ops import msm
+
+    grp, gen = (rc.G2, rc.g2_generator()) if g2 else (rc.G1, rc.g1_generator())
+    pool = [grp.mul(gen, RNG.randrange(1, R_SCALAR)) for _ in range(31)]
+    n = 1 << 12
+    pts = [pool[RNG.randrange(31)] for _ in range(n)]
+    for i in (0, 5, n - 1):
+        pts[i] = None
+    sc = [RNG.randrange(R_SCALAR) for _ in range(n)]
+    xy = torch.from_numpy(cv.encode_g2_affine(pts) if g2 else cv.encode_g1_affine(pts)).to(cuda)
+    fn = msm.msm_g2 if g2 else msm.msm_g1
+    for w in (2, None):
+        fk.reset_launches()
+        got = fn(xy, sc, window_bits=w, device=cuda, signed=True)
+        assert fk.LAUNCHES["f_binary_fq"] > 0
+        assert got == fn(xy, sc, window_bits=w, device=cuda)
+
+
+@pytest.mark.cuda
+def test_contribute_on_card(cuda):
+    """contribute on the card gives the plain version's sections."""
+    from circom_compat_tpu_torch.circom import contribute as tc
+    from circom_compat_tpu_torch.circom.zkey import read_zkey, verify_mpc_chain
+
+    pk, _ = read_zkey(GOLDEN / "chain254.zkey")
+    got = tc.contribute(pk, entropy=b"card", device=cuda)
+    want = tc.contribute(pk, entropy=b"card", device="cpu")
+    for name in ("l_query", "h_query"):
+        assert (getattr(got, name).limbs == getattr(want, name).limbs).all()
+    assert got.delta_g1 == want.delta_g1 and not verify_mpc_chain(got)

@@ -9,6 +9,10 @@ circom/zkey_writer.py) against the JAX package.
   - the closed-form H scalars equal the JAX package's
     _h_scalar_limbs_device and circom/qap.py's iFFT form at n = 16 and 64,
     and a degenerate t raises;
+  - the iFFT H scalars (_h_scalar_words_ifft, through ops/ntt.ifft) equal
+    the JAX package's _h_scalar_limbs_device_ifft and the closed form at
+    n = 16, and a domain that is not a power of two (n = 12) takes that
+    route, as the JAX package's does, instead of raising;
   - projective -> affine accepts lazy [0, 2p) coordinates, batch inversion
     maps zero rows to zero, and a corrupted row trips the self-check (ports
     of tests/test_setup.py);
@@ -29,7 +33,7 @@ import torch
 
 from circom_compat_tpu.circom.zkey_writer import write_zkey as jax_write_zkey
 from circom_compat_tpu.models import generate_parameters as jax_generate_parameters
-from circom_compat_tpu.models.setup import _h_scalar_limbs_device
+from circom_compat_tpu.models.setup import _h_scalar_limbs_device, _h_scalar_limbs_device_ifft
 from circom_compat_tpu.utils.chain import chain_circuit as jax_chain_circuit
 from circom_compat_tpu_torch import models
 from circom_compat_tpu_torch.circom import qap as tqap
@@ -101,6 +105,22 @@ def test_h_scalars_closed_form(n, t, d):
     want = _h_scalar_limbs_device(n, t, d)  # the JAX package's closed form, (n, 16)
     assert torch.equal(got, torch.from_numpy(np.asarray(want).astype("<u2").view("<i4")))
     assert tl.words_to_ints(got.numpy()) == tqap.h_query_scalars(n - 1, t, d)
+
+
+@pytest.mark.parametrize("n,t,d", [(16, 0x7A57E, 0xDE17A), (12, 0xBEEF, 0x1234)])
+def test_h_scalars_ifft(n, t, d):
+    """The 2x-domain iFFT route against the JAX package's and, at a power of
+    two, the closed form; n = 12 gives 16 rows (the iFFT at 32), as in JAX."""
+    got = ts._h_scalar_words_ifft(n, t, d, "cpu")
+    want = np.asarray(_h_scalar_limbs_device_ifft(n, t, d)).astype("<u2")
+    assert torch.equal(got, torch.from_numpy(want.view("<i4")))
+    assert torch.equal(ts._h_scalar_words(n, t, d, "cpu"), got)
+    if n == 12:
+        assert got.shape == (16, 8)
+        assert torch.equal(got, torch.from_numpy(
+            np.asarray(_h_scalar_limbs_device(n, t, d)).astype("<u2").view("<i4")))
+    else:
+        assert tl.words_to_ints(got.numpy()) == tqap.h_query_scalars(n - 1, t, d)
 
 
 @pytest.mark.parametrize("n", [4, 16])
