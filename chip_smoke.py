@@ -63,7 +63,7 @@ Phases (each passes or raises; nothing is caught):
  11. the standalone msm_g1 / msm_g2 at 2^20 points of known discrete logs
      from phase 4's pools: equal to (sum s_i k_i) G, then points/s (median
      of 3 after the checked call);
- 14. (run last) (a) the phase-2 ceremony at 2^20: one contribution with
+ 14. (run after 11) (a) the phase-2 ceremony at 2^20: one contribution with
      fixed entropy to phase 7's key (L and H rescaled by s^-1 on the card:
      scalar_mul_const through K6/K7, the batch inversion through K1): delta
      equal to the host's, 64 sampled L and H rows equal to s^-1 P, a proof
@@ -82,6 +82,20 @@ Phases (each passes or raises; nothing is caught):
      on phase 6's proof as the verifier contract feeds it (and refusing a
      tampered one), verify-onchain without the artifact raising
      FileNotFoundError as the JAX CLI does.
+ 15. (run last) the witness engines on utils/chain_wasm.chain_wasm, the
+     squaring chain's WASM witness generator: (a) k = 2^20 - 2 through
+     engine="aot", its gcc build and run seconds, the witness equal to
+     chain_witness and calculate_witness_limbs to its limbs; (b) "native"
+     at 2^16 - 2 and "interp" at 2^10 - 2 (and aot at both), each equal to
+     chain_witness, all three equal at 2^10 - 2, seconds and WASM
+     instructions a second; (c) the CLI's `--timings fullprove ... --engine
+     aot` at 2^20 on phase 7's key (written with write_zkey): the stage
+     table (witness.calculate beside the prove stages), K1, K2, K3, K4,
+     K6/K7 and K8 launched, verify returning OK!; (d) chain_wasm(254) with
+     {"a": 3} through each engine proved on tests/golden/chain254.zkey at
+     r = 77, s = 88: chain254_proof.json byte for byte; (e) the native
+     Montgomery strip against mont_strip_np on the key's section-4 values,
+     word for word, the seconds of each beside phase 9's zkey load.
  13. (run right after phase 4, on its key, assignment and r/s) the
      multi-device provers (parallel/) over a mesh of four entries that repeat
      the card (and over distinct cards, in turn, where the machine has two
@@ -114,7 +128,7 @@ operations an SM a clock, for the Montgomery products at 64); K1
 and K9 with the profiler's device time, every op a mode of its row. Each
 kernel's launches are counted on the path that
 runs it (phase 4, 6 or 7, or 8 for K9), the counts set to 0 just before;
-phases 9-14 count theirs the same way (launches_by_path on the kernels
+phases 9-15 count theirs the same way (launches_by_path on the kernels
 line), and each must launch every kernel of its path.
 The kernels line (JSON; the K6/K7 and K8 entries also carry ptxas's
 registers and spill bytes per mode, the K3/K4 entries each mode's numbers
@@ -374,7 +388,7 @@ def server_phase(dev, card, work, pk, rows, circuit, asg, rng, on_path, kernels)
     circuit's assignment (write_wtns): ping, three witness_file requests,
     one with fixed r/s equal to the direct prove byte for byte, ok: false
     for a malformed request, one more proof, shutdown; a served proof
-    verified by pairing."""
+    verified by pairing. Returns the server's zkey load seconds."""
     import torch
 
     from circom_compat_tpu_torch import cli
@@ -441,6 +455,7 @@ def server_phase(dev, card, work, pk, rows, circuit, asg, rng, on_path, kernels)
         raise AssertionError("the server thread did not end")
     peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
     prove_s = [resp["prove_s"] for resp in served]
+    load_s = server.load_s
     print(f"[9] ProveServer ({card}): load_s {server.load_s:.4f}, stage_s {server.stage_s:.4f}, "
           f"warm-up {server.compile_s:.4f} s; prove_s of {len(served)} requests {prove_s}, median "
           f"{statistics.median(prove_s):.4f} s; client round trips (s) "
@@ -465,6 +480,7 @@ def server_phase(dev, card, work, pk, rows, circuit, asg, rng, on_path, kernels)
     del pk_r, m_r, direct
     if cuda:
         torch.cuda.empty_cache()
+    return load_s
 
 
 def cli_phase(card, work, pk, rows, circuit, on_path):
@@ -1231,6 +1247,189 @@ def sharded_phase(dev, card, dpk, matrices, resident, asg, r, s, g1_pool, gen, o
     print(f"[13] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def _engine_run(wc, k, a=3):
+    """(seconds of the chain alone, seconds of calculate_witness, the
+    witness) for one run of chain_wasm(k) on wc: init and setInputSignal
+    (which runs the k squares) timed on their own, then the whole
+    calculate_witness (readback included)."""
+    wc.instance.exported("init")(0)
+    t0 = time.perf_counter()
+    wc._set_inputs_circom2({"a": a})
+    chain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    witness = wc.calculate_witness({"a": a})
+    return chain_s, time.perf_counter() - t0, witness
+
+
+def witness_phase(dev, card, work, pk, rows, circuit, on_path, kernels, load9_s, log_n=LOG_N,
+                  log_native=16, log_interp=10):
+    """[15] The witness engines (witness/wasm/aot.py, native.py, interp.py)
+    on chain_wasm, the squaring chain's WASM witness generator:
+    (a) k = 2^log_n - 2 through engine="aot": its gcc build and run
+        seconds; the witness equals chain_witness(k, 3) and
+        calculate_witness_limbs its ints_to_limbs;
+    (b) engine="native" at k = 2^log_native - 2 and "interp" at
+        k = 2^log_interp - 2, each equal to chain_witness, all three engines
+        equal at 2^log_interp - 2; seconds and WASM instructions a second
+        of each (the interpreter never runs the 2^20 chain: hours);
+    (c) `--timings fullprove ... --engine aot` at 2^log_n on `pk` (phase
+        7's key, written with write_zkey): the stage table, K1, K2, K3, K4,
+        K6/K7 and K8 launched, `verify` returning OK!;
+    (d) chain_wasm(254) with {"a": 3} through each engine, proved on
+        tests/golden/chain254.zkey at the golden r and s, equal to
+        chain254_proof.json;
+    (e) the native Montgomery strip against mont_strip_np on the key's
+        section-4 values, word for word, with the seconds of each beside
+        phase 9's zkey load."""
+    import contextlib
+    import mmap
+
+    import torch
+
+    from circom_compat_tpu_torch import cli
+    from circom_compat_tpu_torch.circom.zkey import BinFile, read_zkey
+    from circom_compat_tpu_torch.circom.zkey_writer import write_zkey
+    from circom_compat_tpu_torch.constants import NPRIME_R, R_SCALAR
+    from circom_compat_tpu_torch.models.groth16 import Groth16
+    from circom_compat_tpu_torch.ops import limbs as lc
+    from circom_compat_tpu_torch.utils import trace
+    from circom_compat_tpu_torch.utils.chain import chain_witness
+    from circom_compat_tpu_torch.utils.chain_wasm import chain_wasm, instructions_per_square
+    from circom_compat_tpu_torch.witness import WitnessCalculator
+    from circom_compat_tpu_torch.witness.wasm import aot
+
+    t_phase = time.perf_counter()
+    per_square = instructions_per_square()
+    rates = {}
+
+    def engine_row(engine, k, check=True):
+        t0 = time.perf_counter()
+        wc = WitnessCalculator(chain_wasm(k), engine=engine)
+        setup_s = time.perf_counter() - t0
+        chain_s, calc_s, witness = _engine_run(wc, k)
+        if check and witness != chain_witness(k, 3):
+            raise AssertionError(f"engine={engine} at k={k}: the witness is not chain_witness")
+        rates.setdefault(engine, {})[k] = {
+            "instance_s": round(setup_s, 4), "chain_s": round(chain_s, 4),
+            "calculate_witness_s": round(calc_s, 4),
+            "wasm_ops_per_s": round(per_square * k / chain_s)}
+        return wc, witness
+
+    # (a) the AOT engine at the full size
+    k = (1 << log_n) - 2
+    aot.build_seconds = 0.0
+    wc, witness = engine_row("aot", k)
+    t0 = time.perf_counter()
+    limbs = wc.calculate_witness_limbs({"a": 3})
+    limbs_s = time.perf_counter() - t0
+    if not np.array_equal(limbs, lc.ints_to_limbs(witness, dtype=np.uint32)):
+        raise AssertionError("calculate_witness_limbs differs from ints_to_limbs of the witness")
+    print(f"[15] (a) chain_wasm({k}) ({len(chain_wasm(k))} B, {wc.instance.memory.pages} pages) "
+          f"through engine=aot: C emission + gcc {aot.build_seconds:.4f} s (first use); "
+          f"{json.dumps(rates['aot'][k])}; calculate_witness_limbs {limbs_s:.4f} s; equal to "
+          f"chain_witness and its limbs ({per_square} WASM instructions a square; host CPU of "
+          f"the {card} machine)")
+    del wc, witness, limbs
+
+    # (b) the other engines where they finish in seconds; all three agree at the smallest k
+    small = (1 << log_interp) - 2
+    for engine, log in (("aot", log_native), ("native", log_native), ("native", log_interp),
+                        ("interp", log_interp), ("aot", log_interp)):
+        engine_row(engine, (1 << log) - 2)
+    same = {e: WitnessCalculator(chain_wasm(small), engine=e).calculate_witness({"a": 5})
+            for e in ("aot", "native", "interp")}
+    if not same["aot"] == same["native"] == same["interp"] == chain_witness(small, 5):
+        raise AssertionError(f"the engines differ at k={small}")
+    print("[15] (b) engines, seconds and WASM instructions a second (chain_s: setInputSignal, "
+          "which runs the k squares; calculate_witness_s: init + input + readback): "
+          + json.dumps({e: {str(kk): v for kk, v in rows_.items()} for e, rows_ in rates.items()}))
+    print(f"[15] (b) aot, native and interp give equal witnesses at k={small}, equal to chain_witness")
+
+    # (c) fullprove from inputs through the AOT engine at 2^log_n
+    f = {name: str(Path(work) / name) for name in
+         ("chain.zkey", "chain.wasm", "input.json", "proof.json", "public.json")}
+    t0 = time.perf_counter()
+    write_zkey(f["chain.zkey"], pk, rows[0], rows[1], len(circuit.r1cs.constraints))
+    Path(f["chain.wasm"]).write_bytes(chain_wasm(k))
+    Path(f["input.json"]).write_text(json.dumps({"a": 3}))
+    print(f"[15] (c) zkey of n_vars {pk.n_vars} and chain.wasm written in "
+          f"{time.perf_counter() - t0:.4f} s")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    err, out = io.StringIO(), io.StringIO()
+
+    def fullprove():
+        with trace.collect() as tr, contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+            rc = cli.main(["--timings", "fullprove", f["input.json"], f["chain.wasm"],
+                           f["chain.zkey"], f["proof.json"], f["public.json"], "--engine", "aot",
+                           *([] if dev.type == "cuda" else ["--device", str(dev)])])
+        return rc, tr
+
+    t0 = time.perf_counter()
+    (rc, tr), launches = on_path("fullprove_aot", kernels, fullprove)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"fullprove failed: {err.getvalue()}")
+    stages = tr.as_dict()
+    prove_s = sum(v for name, v in stages.items() if name.startswith("prove.") and "/" not in name)
+    peak = f"{torch.cuda.max_memory_allocated()} B" if dev.type == "cuda" else "not measured"
+    print(f"[15] (c) fullprove --engine aot at 2^{log_n} ({card}): {wall:.4f} s wall; "
+          f"witness.calculate {stages['witness.calculate']:.4f} s against the prove stages' "
+          f"{prove_s:.4f} s (zkey.load {stages['zkey.load']:.4f} s, key.stage "
+          f"{stages.get('key.stage', 0.0):.4f} s); peak device memory {peak}; launches: "
+          f"{json.dumps(launches)}")
+    print("[15] (c) stage table: " + json.dumps(err.getvalue().splitlines()[1:]))
+    print("[15] (c) stages (s): " + json.dumps({n: round(v, 4) for n, v in stages.items()}))
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = cli.main(["verify", f["chain.zkey"], f["public.json"], f["proof.json"]])
+    if (rc, said.getvalue()) != (0, "OK!\n"):
+        raise AssertionError("the fullprove proof does not verify")
+    if json.loads(Path(f["public.json"]).read_text()) != [str(v) for v in circuit.get_public_inputs()]:
+        raise AssertionError("fullprove wrote other public inputs")
+    print("[15] (c) verify: OK!")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) the golden proof from inputs through each engine
+    golden = Path(__file__).resolve().parent / "tests" / "golden"
+    rec = json.loads((golden / "chain254_proof.json").read_text())
+    gpk, gm = read_zkey(golden / "chain254.zkey")
+    for engine in ("aot", "native", "interp"):
+        w = WitnessCalculator(chain_wasm(254), engine=engine).calculate_witness({"a": 3})
+        gp = Groth16.create_proof_with_reduction_and_matrices(
+            gpk, rec["r"], rec["s"], gm, gm.num_instance_variables, gm.num_constraints, w,
+            device=dev)
+        got = {"a": [hex(v) for v in gp.a], "b": [[hex(v) for v in c] for c in gp.b],
+               "c": [hex(v) for v in gp.c]}
+        if json.dumps(got) != json.dumps(rec["proof"]):
+            raise AssertionError(f"chain254 from inputs on engine={engine} is not the golden proof")
+    print("[15] (d) chain_wasm(254) with {\"a\": 3} through aot, native and interp proves to "
+          "tests/golden/chain254_proof.json byte for byte")
+
+    # (e) the strip of section 4: native against numpy
+    with open(f["chain.zkey"], "rb") as fh:
+        mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+    pos = BinFile(mm, buffer=mm).sections[4][0]
+    entry = np.dtype([("matrix", "<u4"), ("constraint", "<u4"), ("signal", "<u4"),
+                      ("value", "<u2", (16,))])
+    count = int.from_bytes(mm[pos : pos + 4], "little")
+    values = np.ascontiguousarray(np.frombuffer(mm, dtype=entry, count=count, offset=pos + 4)["value"])
+    t0 = time.perf_counter()
+    native_out = lc.mont_strip(values, R_SCALAR)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_out = lc.mont_strip_np(values, R_SCALAR, NPRIME_R)
+    plain_s = time.perf_counter() - t0
+    if not np.array_equal(native_out, plain_out):
+        raise AssertionError("the native strip differs from mont_strip_np")
+    print(f"[15] (e) section-4 strip of {count} coefficients: native {native_s:.4f} s, "
+          f"mont_strip_np {plain_s:.4f} s, equal word for word; phase 9's zkey load (native "
+          f"strip) {load9_s:.4f} s, (c)'s zkey.load {stages['zkey.load']:.4f} s")
+    del values, native_out, plain_out, mm
+    print(f"[15] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1820,8 +2019,9 @@ def main() -> int:
                    peak4)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke") as work:
-        server_phase(dev, card, work, pk7, rows, circuit, asg, rng, on_path,
-                     ["fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid", *ck.LAUNCHES])
+        load9 = server_phase(dev, card, work, pk7, rows, circuit, asg, rng, on_path,
+                             ["fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid",
+                              *ck.LAUNCHES])
         cli_phase(card, work, pk6, rows6, cs, on_path)
     msm_phase(dev, card, ks, g1_pool, g2_pool, gen, on_path)
 
@@ -1834,6 +2034,12 @@ def main() -> int:
         signed_msm_phase(dev, card, ks, g1_pool, g2_pool, gen, on_path)
         evm_phase(work, pk6.vk, proof6, cs.get_public_inputs())
     print(f"[14] phase wall {time.perf_counter() - t14:.1f} s")
+
+    # ---- 15. the witness engines; fullprove from inputs at 2^20; the native strip
+    with tempfile.TemporaryDirectory(prefix="chip_smoke") as work:
+        witness_phase(dev, card, work, pk7, rows, circuit, on_path,
+                      ["fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid", *ck.LAUNCHES],
+                      load9)
 
     for name in ("ntt_rows_low", "ntt_rows_mid"):
         results[name].update(entry_kernels={f"ccf_ntt_rows_log{log}": r for log, r in ntt_res.items()})

@@ -14,14 +14,14 @@ class CircomConfig:
     """Loads the .wasm witness generator and .r1cs constraint file
     (reference: src/circom/builder.rs:30-41)."""
 
-    def __init__(self, wasm_path, r1cs_path, sanity_check: bool = False):
-        self.wtns = WitnessCalculator.from_file(wasm_path)
+    def __init__(self, wasm_path, r1cs_path, sanity_check: bool = False, engine: str = "aot"):
+        self.wtns = WitnessCalculator.from_file(wasm_path, engine=engine)
         self.r1cs: R1CS = read_r1cs(r1cs_path)
         self.sanity_check = sanity_check
 
     @classmethod
-    def new(cls, wasm_path, r1cs_path) -> "CircomConfig":
-        return cls(wasm_path, r1cs_path)
+    def new(cls, wasm_path, r1cs_path, engine: str = "aot") -> "CircomConfig":
+        return cls(wasm_path, r1cs_path, engine=engine)
 
     @classmethod
     def new_from_wasm(cls, wtns: WitnessCalculator, r1cs_path) -> "CircomConfig":

@@ -27,7 +27,7 @@ from typing import BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..constants import MONT_R_INV_Q, MONT_R_INV_R, NPRIME_R, Q, R_SCALAR
+from ..constants import MONT_R_INV_Q, MONT_R_INV_R, Q, R_SCALAR
 from ..ops import limbs as limb_codec
 
 ZKEY_MAGIC = b"zkey"
@@ -345,9 +345,7 @@ class BinFile:
                 f"section 4 is degenerate: {num_coeffs} coefficients, max "
                 f"constraint index {max_constraint}, n_public {h.n_public}"
             )
-        values_mont = limb_codec.mont_strip(
-            np.ascontiguousarray(entries["value"]), R_SCALAR, NPRIME_R
-        )
+        values_mont = limb_codec.mont_strip(np.ascontiguousarray(entries["value"]), R_SCALAR)
         keep = entries["constraint"] < num_constraints
         is_a = entries["matrix"] == 0
         sel_a, sel_b = keep & is_a, keep & ~is_a

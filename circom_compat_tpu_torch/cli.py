@@ -155,7 +155,7 @@ def cmd_witness(args) -> int:
     from .circom.wtns import write_wtns
     from .witness import WitnessCalculator
 
-    wc = WitnessCalculator.from_file(args.wasm)
+    wc = WitnessCalculator.from_file(args.wasm, engine=args.engine)
     witness = wc.calculate_witness(_load_json(args.inputs), sanity_check=args.sanity_check)
     write_wtns(witness, args.out)
     print(f"wrote {len(witness)} witness values to {args.out}")
@@ -181,7 +181,7 @@ def cmd_fullprove(args) -> int:
     from .circom.zkey import read_zkey
     from .witness import WitnessCalculator
 
-    wc = WitnessCalculator.from_file(args.wasm)
+    wc = WitnessCalculator.from_file(args.wasm, engine=args.engine)
     witness = wc.calculate_witness(_load_json(args.inputs), sanity_check=args.sanity_check)
     pk, matrices = read_zkey(args.zkey)
     return _prove_and_write(pk, matrices, witness,
@@ -331,7 +331,7 @@ def cmd_serve(args) -> int:
 
     t_all = time.perf_counter()
     print(f"[serve] loading {args.zkey} ...", flush=True)
-    server = ProveServer(args.zkey, args.wasm, device=args.device)
+    server = ProveServer(args.zkey, args.wasm, device=args.device, engine=args.engine)
     print(f"[serve] zkey load {server.load_s:.3f} s, staging {server.stage_s:.3f} s on "
           f"{server.dpk.device} (window_bits={server.window_bits}); warming up ...", flush=True)
     server.warmup()
@@ -392,6 +392,13 @@ def _device_option(p) -> None:
                         "kernels' plain versions)")
 
 
+def _engine_option(p) -> None:
+    p.add_argument("--engine", default="aot", choices=("aot", "native", "interp"),
+                   help="WASM engine of the witness generator: aot (default; C emitted and "
+                        "built by gcc once per module), native (the C++ bytecode VM, built "
+                        "by g++), interp (pure Python)")
+
+
 def _backend_option(p) -> None:
     p.add_argument("--backend", default="device", choices=("device", "streamed"),
                    help="device: the key staged whole; streamed: the query sections sent "
@@ -410,6 +417,7 @@ def main(argv=None) -> int:
     w.add_argument("inputs")
     w.add_argument("out")
     w.add_argument("--sanity-check", action="store_true")
+    _engine_option(w)
     w.set_defaults(fn=cmd_witness)
 
     p = sub.add_parser("prove", help="Groth16 prove from zkey + wtns")
@@ -428,6 +436,7 @@ def main(argv=None) -> int:
     fp.add_argument("proof")
     fp.add_argument("public")
     fp.add_argument("--sanity-check", action="store_true")
+    _engine_option(fp)
     _device_option(fp)
     _backend_option(fp)
     fp.set_defaults(fn=cmd_fullprove)
@@ -486,6 +495,7 @@ def main(argv=None) -> int:
     sv.add_argument("zkey")
     sv.add_argument("--wasm", default=None, help="witness wasm so requests can send raw inputs")
     sv.add_argument("--socket", default=DEFAULT_SOCKET)
+    _engine_option(sv)
     _device_option(sv)
     sv.set_defaults(fn=cmd_serve)
 

@@ -37,14 +37,16 @@ class BatchProver:
     """Prove many input sets against one staged key (on the key's device).
 
     wasm_source: path or bytes of the circuit's witness program; each
-    worker thread builds its own WitnessCalculator (an instance is stateful
-    and must not be shared across threads).
+    worker thread builds its own WitnessCalculator on `engine` (an instance
+    is stateful and must not be shared across threads; the AOT build of a
+    module is shared, under wasm/aot.py's lock).
     """
 
     def __init__(self, dpk: gd.DeviceProvingKey, wasm_source, workers: int = 2,
                  window_bits: Optional[int] = None, sanity_check: bool = False,
-                 keep_witness: bool = False):
+                 keep_witness: bool = False, engine: str = "aot"):
         self.dpk = dpk
+        self.engine = engine
         self.sanity_check = sanity_check
         self.keep_witness = keep_witness
         self.workers = max(1, workers)
@@ -63,7 +65,7 @@ class BatchProver:
 
         wc = getattr(self._local, "wc", None)
         if wc is None:
-            wc = WitnessCalculator(self._wasm_bytes)
+            wc = WitnessCalculator(self._wasm_bytes, engine=self.engine)
             self._local.wc = wc
         return wc
 
@@ -109,12 +111,13 @@ class BatchProver:
 
 def prove_batch(zkey_path, wasm_path, inputs_list: Sequence[dict],
                 rs: Optional[Sequence[Tuple[int, int]]] = None, workers: int = 2,
-                window_bits: Optional[int] = None, device=None) -> List[BatchResult]:
+                window_bits: Optional[int] = None, device=None,
+                engine: str = "aot") -> List[BatchResult]:
     """Load the key, stage it on the card (unless `device` names another
     device) and prove every input set."""
     from ..circom.zkey import read_zkey
 
     pk, matrices = read_zkey(zkey_path)
     dpk = gd.DeviceProvingKey.build(pk, matrices, matrices.num_constraints, device=device)
-    bp = BatchProver(dpk, wasm_path, workers=workers, window_bits=window_bits)
+    bp = BatchProver(dpk, wasm_path, workers=workers, window_bits=window_bits, engine=engine)
     return bp.prove_many(inputs_list, rs=rs)

@@ -83,7 +83,16 @@ def words_to_ints(words: np.ndarray) -> list:
     return limbs_to_ints(arr.view("<u2").reshape(arr.shape[:-1] + (NUM_LIMBS,)))
 
 
-def mont_strip(values: np.ndarray, p: int, nprime: int) -> np.ndarray:
+def mont_strip(values: np.ndarray, p: int) -> np.ndarray:
+    """Montgomery strip: (n, 16) uint16 limbs of v -> v*R^-1 mod p, on the
+    host library's threads (ops/native_field.py, built by g++ at first use;
+    a missing compiler raises). mont_strip_np is its plain version."""
+    from . import native_field
+
+    return native_field.mont_strip(values, p)
+
+
+def mont_strip_np(values: np.ndarray, p: int, nprime: int) -> np.ndarray:
     """Vectorized Montgomery strip: (n, 16) uint16 limbs of v -> v*R^-1 mod p.
 
     uint64 REDC over one (n, 33) work buffer; each work limb accumulates at

@@ -36,7 +36,8 @@ from .cli import _proof_to_json
 class ProveServer:
     """Resident prover: a staged key fed requests."""
 
-    def __init__(self, zkey_path: str, wasm_path: Optional[str] = None, device=None):
+    def __init__(self, zkey_path: str, wasm_path: Optional[str] = None, device=None,
+                 engine: str = "aot"):
         from .circom.zkey import read_zkey
         from .models import groth16_device as gd
 
@@ -53,7 +54,7 @@ class ProveServer:
         if wasm_path:
             from .witness import WitnessCalculator
 
-            self.wc = WitnessCalculator.from_file(wasm_path)
+            self.wc = WitnessCalculator.from_file(wasm_path, engine=engine)
 
         self._gd = gd
         self.window_bits = gd.default_window_bits(self.dpk)

@@ -9,12 +9,22 @@ Supports both circom ABIs:
     getPWitness with the SafeMemory Fr codec
     (reference: src/witness/memory.rs — kept for back-compat there too)
 
-The WASM runs in the first-party interpreter (witness/wasm/), replacing the
-reference's Wasmer embedding. It is the only engine: nothing falls back.
+The WASM runs on one of three first-party engines, replacing the
+reference's Wasmer embedding, chosen by `engine=`:
+  - "aot" (the default, the JAX package's first choice): the module's
+    flat bytecode emitted as C and built by gcc once per module
+    (wasm/aot.py); its batched readbacks (read_witness_batch,
+    read_witness_words, call_range) fetch the witness in one native loop;
+  - "native": the C++ bytecode VM (wasm/native.py, hostsrc/wasm_vm.cpp);
+  - "interp": the pure-Python interpreter (wasm/interp.py).
+The choice is explicit: an unknown engine raises ValueError, an engine
+whose compiler is missing raises and names it, no environment variable
+changes it and nothing falls back to another engine.
 """
 
 from __future__ import annotations
 
+import shutil
 import sys
 from typing import Dict, Iterable, List, Sequence, Union
 
@@ -22,6 +32,7 @@ from ..constants import R_SCALAR
 from ..utils import trace
 from .fnv import fnv
 from .memory import SafeMemory
+from .wasm import aot, native
 from .wasm.interp import Instance, Memory
 from .wasm.module import decode_module
 
@@ -57,8 +68,18 @@ def _flatten(values) -> List[int]:
     return out
 
 
+ENGINES = ("aot", "native", "interp")
+_TOOLCHAIN = {"aot": "gcc", "native": "g++"}
+
+
 class WitnessCalculator:
-    def __init__(self, wasm_bytes: bytes):
+    def __init__(self, wasm_bytes: bytes, engine: str = "aot"):
+        if engine not in ENGINES:
+            raise ValueError(f"engine={engine!r}: expected one of {ENGINES}")
+        tool = _TOOLCHAIN.get(engine)
+        if tool is not None and shutil.which(tool) is None:
+            raise RuntimeError(f"engine={engine!r} builds with {tool}, which is not on PATH")
+        self.engine = engine
         sys.setrecursionlimit(100000)
         self._err_parts: List[str] = []
 
@@ -86,7 +107,9 @@ class WitnessCalculator:
             # the reference allocates a 2000-page host memory for this ABI
             imports[("env", "memory")] = Memory(2000)
 
-        self.instance = Instance(module, imports)
+        engine_cls = {"aot": aot.AotInstance, "native": native.NativeInstance,
+                      "interp": Instance}[engine]
+        self.instance = engine_cls(module, imports)
         self.legacy = not self.instance.has_export("setInputSignal")
 
         if self.legacy:
@@ -147,19 +170,41 @@ class WitnessCalculator:
     def calculate_witness_limbs(self, inputs: Inputs, sanity_check: bool = False):
         """Run the circuit; returns the witness as a (n_wires, 16) uint32
         canonical 16-bit-limb array, one of the device prover's prepared
-        assignment forms (models/groth16_device.encode_assignment)."""
+        assignment forms (models/groth16_device.encode_assignment). On the
+        AOT engine the circom-2 readback is already a word array and no
+        Python int is made."""
         import numpy as np
 
         from ..ops import limbs as limb_codec
 
-        vals = self.calculate_witness(inputs, sanity_check)
-        return limb_codec.ints_to_limbs(vals, dtype=np.uint32)
+        with trace.stage("witness.calculate"):
+            if not self.legacy:
+                ex = self.instance.exported
+                ex("init")(1 if sanity_check else 0)
+                self._set_inputs_circom2(inputs)
+                witness_size = ex("getWitnessSize")()
+                if hasattr(self.instance, "read_witness_words"):
+                    words = self.instance.read_witness_words(witness_size, self.n32)
+                    # LE u32 words are the LE byte stream, so LE u16 limbs
+                    limbs16 = words.astype("<u4").view("<u2")
+                    out = np.zeros((witness_size, 16), np.uint32)
+                    ncols = min(16, limbs16.shape[1])
+                    out[:, :ncols] = limbs16[:, :ncols]
+                    return out
+                vals = self._read_witness_circom2(witness_size)
+            else:
+                vals = self._calculate_witness_legacy(inputs, sanity_check)
+            return limb_codec.ints_to_limbs(vals, dtype=np.uint32)
 
     def _calculate_witness_circom2(self, inputs: Inputs, sanity_check: bool) -> List[int]:
         ex = self.instance.exported
         ex("init")(1 if sanity_check else 0)
         self._set_inputs_circom2(inputs)
         witness_size = ex("getWitnessSize")()
+        if hasattr(self.instance, "read_witness_batch"):
+            # AOT engine: the readback loop in one native call instead of
+            # witness_size * (1 + n32) ctypes round trips
+            return self.instance.read_witness_batch(witness_size, self.n32)
         return self._read_witness_circom2(witness_size)
 
     def _set_inputs_circom2(self, inputs: Inputs) -> None:
@@ -222,25 +267,44 @@ class WitnessCalculator:
                 set_signal(0, 0, sig_offset + i, p_fr)
 
         n_vars = ex("getNVars")()
-        get_p_witness = ex("getPWitness")
-        out = []
-        for i in range(n_vars):
-            ptr = get_p_witness(i)
-            out.append(safe.read_fr(ptr) % self.prime)
+        if hasattr(self.instance, "call_range"):
+            # AOT engine: every wire pointer in one native loop, then the Fr
+            # structs decoded from one memory snapshot
+            ptrs = self.instance.call_range("getPWitness", n_vars)
+            lo = min(ptrs)
+            hi = max(ptrs) + 8 + self.n32 * 4
+            snap = SafeMemory(_Snapshot(self.instance.memory.read(lo, hi - lo), lo), self.n32)
+            out = [snap.read_fr(p) % self.prime for p in ptrs]
+        else:
+            get_p_witness = ex("getPWitness")
+            out = []
+            for i in range(n_vars):
+                ptr = get_p_witness(i)
+                out.append(safe.read_fr(ptr) % self.prime)
         safe.set_free_pos(old_free)
         return out
 
     # -- convenience ----------------------------------------------------------
 
     @classmethod
-    def from_file(cls, path) -> "WitnessCalculator":
+    def from_file(cls, path, engine: str = "aot") -> "WitnessCalculator":
         with open(path, "rb") as fh:
-            return cls(fh.read())
+            return cls(fh.read(), engine=engine)
 
     # the reference's constructor takes a path (witness_calculator.rs:49-56)
     @classmethod
-    def new(cls, path) -> "WitnessCalculator":
-        return cls.from_file(path)
+    def new(cls, path, engine: str = "aot") -> "WitnessCalculator":
+        return cls.from_file(path, engine=engine)
+
+
+class _Snapshot:
+    """A copy of memory [lo, lo + len(data)) behind Memory.read."""
+
+    def __init__(self, data: bytes, lo: int):
+        self.data, self.lo = data, lo
+
+    def read(self, addr: int, n: int) -> bytes:
+        return self.data[addr - self.lo : addr - self.lo + n]
 
 
 def _from_u32_limbs(limbs: Iterable[int]) -> int:

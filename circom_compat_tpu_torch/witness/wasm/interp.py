@@ -733,7 +733,8 @@ class Instance:
                 type_idx = r.u32()
                 r.byte()  # table index 0
                 ft = module.types[type_idx]
-                # b = result count (unused by the interpreter loop)
+                # b = result count (unused by the interpreter loop, needed
+                # by the AOT C emitter for static stack-depth tracking)
                 out.append((OP_CALL_INDIRECT, len(ft.params), len(ft.results)))
                 height += len(ft.results) - len(ft.params) - 1
             elif op == 0x00:
