@@ -90,9 +90,9 @@ def contribute(pk: ProvingKey, entropy: Optional[bytes] = None, name: str = "",
 
     delta_g1 = rc.G1.mul(pk.delta_g1, s)
     delta_g2 = rc.G2.mul(pk.vk.delta_g2, s)
-    with trace.stage("contribute.l_query", dev):
+    with trace.span("contribute.l_query", dev):
         l_query = _rescale_g1_section(pk.l_query, s_inv, dev)
-    with trace.stage("contribute.h_query", dev):
+    with trace.span("contribute.h_query", dev):
         h_query = _rescale_g1_section(pk.h_query, s_inv, dev)
 
     # contributor key: random-base knowledge proof of s

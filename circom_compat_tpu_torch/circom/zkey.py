@@ -403,7 +403,7 @@ def read_zkey(path_or_reader) -> Tuple[ProvingKey, ConstraintMatrices]:
     memory-mapped; the mapping lives as long as the section arrays."""
     from ..utils import trace
 
-    with trace.stage("zkey.load"):
+    with trace.span("zkey.load"):
         if hasattr(path_or_reader, "read"):
             binfile = BinFile(path_or_reader)
             return binfile.proving_key(), binfile.matrices()

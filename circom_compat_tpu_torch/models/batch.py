@@ -10,6 +10,11 @@ staged DeviceProvingKey stays resident and the work is pipelined:
 
 at most `inflight` proves queued on the device at once. Per-proof latency
 equals the single prove's; results come back in input order.
+
+Each input is one trace request (utils/trace.py), on the worker thread
+(witness.calculate) and on the caller's: batch.witness_wait (the wait for
+the witness), prove.encode (encode and copy to the device), prove_core's
+stages, and prove.assemble with readback and fold.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..constants import R_SCALAR
+from ..utils import trace
 from . import groth16_device as gd
 
 
@@ -69,8 +75,10 @@ class BatchProver:
             self._local.wc = wc
         return wc
 
-    def _witness(self, inputs) -> List[int]:
-        return self._calculator().calculate_witness(inputs, sanity_check=self.sanity_check)
+    def _witness(self, inputs, rid: int) -> List[int]:
+        wc = self._calculator()
+        with trace.request(rid):
+            return wc.calculate_witness(inputs, sanity_check=self.sanity_check)
 
     def prove_many(self, inputs_list: Sequence[dict],
                    rs: Optional[Sequence[Tuple[int, int]]] = None,
@@ -87,21 +95,30 @@ class BatchProver:
         dpk, wb = self.dpk, self.window_bits
         results: List[Optional[BatchResult]] = [None] * n
         pending: "queue.Queue" = queue.Queue()
+        rids = [trace.new_request_id() for _ in range(n)]
 
         def drain_one():
             i, w, (g1, g2, _) = pending.get()
             r, s = rs[i]
-            proof = gd.assemble_proof(dpk.pk, r, s, g1.cpu().numpy(), g2.cpu().numpy(), wb)
+            with trace.request(rids[i]), trace.span("prove.assemble", dpk.device):
+                with trace.span("readback", dpk.device):
+                    g1, g2 = g1.cpu().numpy(), g2.cpu().numpy()
+                with trace.span("fold", dpk.device):
+                    proof = gd.assemble_proof(dpk.pk, r, s, g1, g2, wb)
             results[i] = BatchResult(
                 proof=proof, public_inputs=[v % R_SCALAR for v in w[1 : dpk.num_inputs]],
                 witness=list(w) if self.keep_witness else None)
 
         with cf.ThreadPoolExecutor(max_workers=self.workers) as pool:
-            futures = [pool.submit(self._witness, inp) for inp in inputs_list]
+            futures = [pool.submit(self._witness, inp, rid)
+                       for inp, rid in zip(inputs_list, rids)]
             for i, fut in enumerate(futures):
-                w = fut.result()  # in order: keeps results aligned and bounded
-                asg = torch.from_numpy(gd.encode_assignment(w)).to(dpk.device)
-                pending.put((i, w, gd.prove_core(dpk, asg, wb)))
+                with trace.request(rids[i]):
+                    with trace.span("batch.witness_wait"):
+                        w = fut.result()  # in order: keeps results aligned and bounded
+                    with trace.span("prove.encode", dpk.device):
+                        asg = torch.from_numpy(gd.encode_assignment(w)).to(dpk.device)
+                    pending.put((i, w, gd.prove_core(dpk, asg, wb)))
                 if pending.qsize() >= inflight:
                     drain_one()
             while not pending.empty():

@@ -100,17 +100,17 @@ def verify_with_processed_vk(pvk: PreparedVerifyingKey, public_inputs: Sequence[
                              proof: Proof) -> bool:
     """e(A, B) == e(alpha, beta) * e(IC(x), gamma) * e(C, delta). A
     malformed proof point gives False, not an undefined pairing value."""
-    with trace.stage("verify"):
+    with trace.span("verify"):
         if not validate_proof(proof):
             return False
         ic = pvk.vk.gamma_abc_g1
         if len(public_inputs) + 1 != len(ic):
             raise ValueError("public input length mismatch")
-        with trace.stage("ic_msm"):
+        with trace.span("ic_msm"):
             acc = ic[0]
             for x, base in zip(public_inputs, ic[1:]):
                 acc = curve.G1.add(acc, curve.G1.mul(base, x % R_SCALAR))
-        with trace.stage("pairing"):
+        with trace.span("pairing"):
             f = pairing.multi_pairing(
                 [(proof.a, proof.b), (acc, pvk.gamma_neg), (proof.c, pvk.delta_neg)])
         return f == pvk.alpha_beta

@@ -117,7 +117,7 @@ class DeviceProvingKey:
     def build(pk: ProvingKey, matrices, num_constraints: int,
               num_inputs: Optional[int] = None, device=None) -> "DeviceProvingKey":
         dev = resolve_device(device)
-        with trace.stage("key.stage", dev):
+        with trace.span("key.stage", dev):
             return DeviceProvingKey._build(pk, matrices, num_constraints, num_inputs, dev)
 
     @staticmethod
@@ -211,19 +211,19 @@ def prove_core(dpk: DeviceProvingKey, asg_plain: torch.Tensor, window_bits: int)
     """(n_vars, 8) canonical assignment words on the key's device ->
     (G1 window sums (4, W, 3, 8) for [A, B1, L, H], G2 sums (W, 3, 2, 8), h)."""
     dev = dpk.device
-    with trace.stage("prove.witness_map", dev):
+    with trace.span("prove.witness_map", dev):
         h = fk.fr_from_mont(dpk.matrices.witness_map(fk.fr_to_mont(asg_plain)))
-    with trace.stage("prove.msm", dev):
-        with trace.stage("sorts", dev):
+    with trace.span("prove.msm", dev):
+        with trace.span("sorts", dev):
             q = dpk.queries
             sort_a = msm_ops.window_orders(asg_plain, window_bits)
             sort_l = msm_ops.window_orders(
                 asg_plain[dpk.num_inputs : dpk.num_inputs + dpk.aux_len], window_bits)
             sort_h = msm_ops.window_orders(h[: len(q["h"])], window_bits)
-        with trace.stage("msm_g1", dev):
+        with trace.span("msm_g1", dev):
             g1 = msm_ops.window_sums([q["a"], q["b1"], q["l"], q["h"]],
                                      [sort_a, sort_a, sort_l, sort_h], window_bits)
-        with trace.stage("msm_g2", dev):
+        with trace.span("msm_g2", dev):
             g2 = msm_ops.window_sums([q["b2"]], [sort_a], window_bits)[0]
     return g1, g2, h
 
@@ -277,13 +277,13 @@ def prove_prepared(dpk: DeviceProvingKey, r: int, s: int, full_assignment: Seque
         window_bits = default_window_bits(dpk)
     dev = dpk.device
     with timed_stages(stage_times, _PROVE_KEYS):
-        with trace.stage("prove.encode", dev):
+        with trace.span("prove.encode", dev):
             asg = _to_device(encode_assignment(full_assignment), dev)
         g1, g2, _ = prove_core(dpk, asg, window_bits)
-        with trace.stage("prove.assemble", dev):
-            with trace.stage("readback", dev):
+        with trace.span("prove.assemble", dev):
+            with trace.span("readback", dev):
                 g1, g2 = g1.cpu().numpy(), g2.cpu().numpy()
-            with trace.stage("fold", dev):
+            with trace.span("fold", dev):
                 return assemble_proof(dpk.pk, r, s, g1, g2, window_bits)
 
 

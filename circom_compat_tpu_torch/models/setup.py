@@ -331,7 +331,7 @@ def generate_parameters_from_matrices(
     device sync."""
     dev = resolve_device(device)
     with timed_stages(stage_times, _SETUP_KEYS):
-        with trace.stage("setup.instance_map", dev):
+        with trace.span("setup.instance_map", dev):
             domain_size = qap.domain_size_for(len(matrix_a), num_inputs)
             a_t, b_t, c_t, _zt = qap_instance_map(matrix_a, matrix_b, matrix_c, num_inputs,
                                                   num_vars, t)
@@ -345,21 +345,21 @@ def generate_parameters_from_matrices(
                 "a_query": a_t,
                 "b_g1_query": b_t,
             }
-        with trace.stage("setup.encode", dev):
+        with trace.span("setup.encode", dev):
             words = {k: torch.from_numpy(fl.encode_plain(v)).to(dev) for k, v in scalars.items()}
-        with trace.stage("setup.g1_fold", dev):
+        with trace.span("setup.g1_fold", dev):
             points = {k: fb.fixed_base_points_from_words(w) for k, w in words.items()}
-        with trace.stage("setup.h_scalars", dev):
+        with trace.span("setup.h_scalars", dev):
             h_words = _h_scalar_words(domain_size, t, delta_inv, dev)
-        with trace.stage("setup.g1_fold", dev):
+        with trace.span("setup.g1_fold", dev):
             points["h_query"] = fb.fixed_base_points_from_words(h_words)
-        with trace.stage("setup.g2_fold", dev):
+        with trace.span("setup.g2_fold", dev):
             points["b_g2_query"] = fb.fixed_base_points_from_words(words["b_g1_query"], g2=True)
         del words, h_words
-        with trace.stage("setup.readback", dev):
+        with trace.span("setup.readback", dev):
             secs = {k: _section(p, k == "b_g2_query") for k, p in points.items()}
         del points
-        with trace.stage("setup.selfcheck", dev):
+        with trace.span("setup.selfcheck", dev):
             for name, sec in secs.items():
                 known = scalars["b_g1_query"] if name == "b_g2_query" else scalars.get(name)
                 _selfcheck_section(name, sec, known, g2=name == "b_g2_query", device=dev)

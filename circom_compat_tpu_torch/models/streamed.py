@@ -95,7 +95,7 @@ class StreamedProvingKey:
     def build(pk: ProvingKey, matrices, num_constraints: int, num_inputs: Optional[int] = None,
               chunk_points: int = 1 << 20, device=None) -> "StreamedProvingKey":
         dev = resolve_device(device)
-        with trace.stage("key.stage", dev):
+        with trace.span("key.stage", dev):
             if num_inputs is None:
                 num_inputs = matrices.num_instance_variables
             return StreamedProvingKey(
@@ -235,16 +235,16 @@ def prove_streamed(spk: StreamedProvingKey, r: int, s: int,
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    with trace.stage("prove.encode", dev):
+    with trace.span("prove.encode", dev):
         asg = gd._to_device(gd.encode_assignment(full_assignment), dev)
-    with trace.stage("prove.witness_map", dev):
+    with trace.span("prove.witness_map", dev):
         h = fk.fr_from_mont(spk.matrices.witness_map(fk.fr_to_mont(asg)))
         loop = -(-n // chunk) * chunk
         # the scalars of A/B1/B2, of L (from num_inputs on) and of H,
         # zero-padded to the loop's length
         scalars = (_padded(asg, loop), _padded(asg[spk.num_inputs:], loop), _padded(h, loop))
         del asg, h
-    with trace.stage("prove.msm_stream", dev):
+    with trace.span("prove.msm_stream", dev):
         W, B = msm_ops.num_windows(window_bits), 1 << window_bits
         acc = {False: cv.proj_identity_const(False, dev).expand((4, W, B, 3, 8)).contiguous(),
                True: cv.proj_identity_const(True, dev).expand((1, W, B, 3, 2, 8)).contiguous()}
@@ -262,5 +262,5 @@ def prove_streamed(spk: StreamedProvingKey, r: int, s: int,
     if cuda:
         LAST_PEAK_DEVICE_BYTES = torch.cuda.max_memory_allocated(dev)
         LAST_CHUNK_MS = chunk_ms
-    with trace.stage("prove.assemble"):
+    with trace.span("prove.assemble"):
         return gd.assemble_proof(spk.pk, r, s, g1_sums, g2_sums, window_bits)

@@ -178,7 +178,7 @@ def build_multihost_prover(dpk: gd.DeviceProvingKey, mesh: ProcessMesh,
     """Stage this process's shards of dpk's padded query stack (global
     shards p M .. p M + M - 1 of P M), then wait for every process."""
     M, P = mesh.local.size, mesh.num_processes
-    with trace.stage("key.stage", mesh.local):
+    with trace.span("key.stage", mesh.local):
         sharded = ps._build(dpk, mesh.local, P * M, range(mesh.process_id * M,
                                                          (mesh.process_id + 1) * M),
                             window_bits, dist_ntt=False)
@@ -202,10 +202,10 @@ def prove_multihost(prover: MultihostProver, r: int, s: int, full_assignment,
 
     with gd.timed_stages(stage_times, ps._SHARDED_KEYS):
         g1, g2 = ps.sharded_sums(prover.sharded, full_assignment, gather)
-        with trace.stage("prove.assemble", mesh.local):
-            with trace.stage("readback", mesh.local):
+        with trace.span("prove.assemble", mesh.local):
+            with trace.span("readback", mesh.local):
                 g1, g2 = g1.cpu().numpy(), g2.cpu().numpy()
-            with trace.stage("fold"):
+            with trace.span("fold"):
                 return gd.assemble_proof(prover.dpk.pk, r, s, g1, g2, prover.window_bits)
 
 

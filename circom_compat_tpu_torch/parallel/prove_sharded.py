@@ -167,7 +167,7 @@ def build_sharded_prover(dpk: gd.DeviceProvingKey, mesh: Mesh, window_bits: Opti
             dist_ntt = True
         except ValueError:  # the domain does not split over D shards: replicate the map
             dist_ntt = False
-    with trace.stage("key.stage", mesh):
+    with trace.span("key.stage", mesh):
         return _build(dpk, mesh, D, range(D), window_bits, dist_ntt)
 
 
@@ -180,13 +180,13 @@ def sharded_sums(prover: ShardedProver, full_assignment, gather: Callable):
     dpk = prover.dpk
     rows, rows2 = prover.n_pad // prover.total, prover.g2_pad // prover.total
     ni, aux = dpk.num_inputs, dpk.aux_len
-    with trace.stage("prove.encode", mesh):
+    with trace.span("prove.encode", mesh):
         words = torch.from_numpy(gd.encode_assignment(full_assignment))
         asg = [copy_to(words, d) for d in mesh.devices]
-    with trace.stage("prove.witness_map", mesh):
+    with trace.span("prove.witness_map", mesh):
         h = prover.h_scalars(asg)
-    with trace.stage("prove.msm", mesh):
-        with trace.stage("sorts", mesh):
+    with trace.span("prove.msm", mesh):
+        with trace.span("sorts", mesh):
             sorts = []
             for g, a, d in zip(prover.shard_ids, asg, mesh.devices):
                 lo = g * rows
@@ -196,13 +196,13 @@ def sharded_sums(prover: ShardedProver, full_assignment, gather: Callable):
                 s2 = sa if rows2 == rows else msm_ops.window_orders(
                     rows_of([a], g * rows2, (g + 1) * rows2, d), w)
                 sorts.append((sa, sl, sh, s2))
-        with trace.stage("msm_g1", mesh):
+        with trace.span("msm_g1", mesh):
             g1 = [msm_ops.window_sums(list(q), [sa, sa, sl, sh], w)
                   for q, (sa, sl, sh, _) in zip(prover.g1, sorts)]
-        with trace.stage("msm_g2", mesh):
+        with trace.span("msm_g2", mesh):
             g2 = [msm_ops.window_sums([q], [s[3]], w)[0] for q, s in zip(prover.g2, sorts)]
         del sorts
-        with trace.stage("gather", mesh):
+        with trace.span("gather", mesh):
             return gather(g1, g2)
 
 
@@ -223,8 +223,8 @@ def prove_sharded(dpk: gd.DeviceProvingKey, prover: ShardedProver, r: int, s: in
     with gd.timed_stages(stage_times, _SHARDED_KEYS):
         g1, g2 = sharded_sums(prover, full_assignment, lambda g1, g2: (
             fold_shard_sums(g1, mesh.lead), fold_shard_sums(g2, mesh.lead)))
-        with trace.stage("prove.assemble", mesh):
-            with trace.stage("readback", mesh):
+        with trace.span("prove.assemble", mesh):
+            with trace.span("readback", mesh):
                 g1, g2 = g1.cpu().numpy(), g2.cpu().numpy()
-            with trace.stage("fold"):
+            with trace.span("fold"):
                 return gd.assemble_proof(dpk.pk, r, s, g1, g2, prover.window_bits)

@@ -79,9 +79,9 @@ def prove_streamed_sharded(spk: sm.StreamedProvingKey, mesh: Optional[Mesh], r: 
     cards = [d for d in mesh.physical() if torch.device(d).type == "cuda"]
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
-    with trace.stage("prove.encode", dev):
+    with trace.span("prove.encode", dev):
         asg = gd._to_device(gd.encode_assignment(full_assignment), dev)
-    with trace.stage("prove.witness_map", mesh):
+    with trace.span("prove.witness_map", mesh):
         h = fk.fr_from_mont(spk.matrices.witness_map(fk.fr_to_mont(asg)))
         # each shard's rows of the scalars of A/B1/B2, of L and of H: chunk j's
         # part i is row j of shard i's (chunks, part, 8) slice
@@ -94,7 +94,7 @@ def prove_streamed_sharded(spk: sm.StreamedProvingKey, mesh: Optional[Mesh], r: 
             cv.proj_identity_const(True, d).expand((1, W, B, 3, 2, 8)).contiguous()]
            for d in mesh.devices]
     pipes = [sm.ChunkPipe(d, part) for d in mesh.devices]
-    with trace.stage("prove.msm_stream", mesh):
+    with trace.span("prove.msm_stream", mesh):
         for j, lo in enumerate(range(0, n, chunk)):
             for i, pipe in enumerate(pipes):
 
@@ -108,13 +108,13 @@ def prove_streamed_sharded(spk: sm.StreamedProvingKey, mesh: Optional[Mesh], r: 
                 pipe.push(lambda g1, g2, lo_i=lo + i * part: sm._stage_pack(spk, lo_i, g1, g2),
                           compute)
         chunk_ms = {i: pipe.chunk_ms() for i, pipe in enumerate(pipes)}
-        with trace.stage("scans", mesh):
+        with trace.span("scans", mesh):
             sums = [(msm_ops.scan_buckets(a1), msm_ops.scan_buckets(a2)[0]) for a1, a2 in acc]
-        with trace.stage("gather", mesh):
+        with trace.span("gather", mesh):
             g1 = fold_shard_sums([x[0] for x in sums], mesh.lead).cpu().numpy()
             g2 = fold_shard_sums([x[1] for x in sums], mesh.lead).cpu().numpy()
     if cards:
         LAST_PEAK_DEVICE_BYTES = {d: torch.cuda.max_memory_allocated(d) for d in cards}
         LAST_CHUNK_MS = chunk_ms
-    with trace.stage("prove.assemble"):
+    with trace.span("prove.assemble"):
         return gd.assemble_proof(spk.pk, r, s, g1, g2, window_bits)

@@ -16,7 +16,10 @@ Protocol: newline-delimited JSON over SOCK_STREAM.
             {"ok": false, "error": "..."}
 
 One connection may carry many requests; requests are served one at a time
-(one card). See cli.py `serve` / `prove-client`.
+(one card). See cli.py `serve` / `prove-client`. Each prove request is one
+trace request (utils/trace.py): the span server.handle holds
+server.read_wtns, server.public, server.prove (the prove's own stages) and
+server.respond.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 
 # the CLI's encoder, with its point-at-infinity encodings
 from .cli import _proof_to_json
+from .utils import trace
 
 
 class ProveServer:
@@ -92,6 +96,13 @@ class ProveServer:
                 "compile_s": None if self.compile_s is None else round(self.compile_s, 2),
                 "n_proofs": self.n_proofs,
             }
+        with trace.request(), trace.span("server.handle", root=True):
+            return self._prove_request(req)
+
+    def _prove_request(self, req: dict) -> dict:
+        """One prove request, in the spans server.read_wtns and
+        server.public (a witness file's read and public decode),
+        server.prove and server.respond."""
         n_pub = self.matrices.num_instance_variables
         if "inputs" in req:
             if self.wc is None:
@@ -106,21 +117,25 @@ class ProveServer:
             from .circom.wtns import read_wtns_limbs
             from .ops import limbs as limb_codec
 
-            witness = read_wtns_limbs(req["witness_file"])
-            public = limb_codec.limbs_to_ints(witness[1:n_pub])
+            with trace.span("server.read_wtns"):
+                witness = read_wtns_limbs(req["witness_file"])
+            with trace.span("server.public"):
+                public = limb_codec.limbs_to_ints(witness[1:n_pub])
         else:
             return {"ok": False, "error": "no inputs/witness in request"}
 
         r = int(req["r"]) if "r" in req else None
         s = int(req["s"]) if "s" in req else None
-        proof, dt = self.prove(witness, r, s)
+        with trace.span("server.prove", root=True):
+            proof, dt = self.prove(witness, r, s)
         self.n_proofs += 1
-        return {
-            "ok": True,
-            "proof": _proof_to_json(proof),
-            "public": [str(v) for v in public],
-            "prove_s": round(dt, 4),
-        }
+        with trace.span("server.respond"):
+            return {
+                "ok": True,
+                "proof": _proof_to_json(proof),
+                "public": [str(v) for v in public],
+                "prove_s": round(dt, 4),
+            }
 
     # ------------------------------------------------------------- transport
 

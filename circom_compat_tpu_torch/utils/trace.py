@@ -1,69 +1,107 @@
-"""Per-stage timing and device profiling for the proving pipeline.
+"""Spans of the proving pipeline: one recorder, request-scoped and thread-aware.
 
-  - ``stage(name, device=None)``: a context manager that records the wall
-    time of a pipeline stage into the active collector(s). Library code
-    wraps its stages unconditionally: with no active collector and the
-    environment knob unset, a stage costs one thread-local read.
-  - ``collect()``: a context manager yielding a :class:`Trace` that
-    captures every stage entered on this thread while it is active.
-    Nested stages are recorded with ``outer/inner`` paths.
-  - ``CIRCOM_TPU_TIMINGS=1``: logs every stage to the
-    ``circom_compat_tpu_torch.trace`` logger as it completes.
-  - ``device_profile(logdir)``: a ``torch.profiler`` capture (host and, on
-    a card, device activity) around a block, written as a Chrome trace
-    into ``logdir``.
+  - ``span(name, device=None, root=False)``: a context manager around one
+    stage or boundary of the pipeline. A span records its name, its
+    ``outer/inner`` path, a span id, its parent's id (the enclosing span on
+    the same thread), the thread's current request id, the thread id, and
+    its start and end in ``time.perf_counter_ns()``. It goes to whichever
+    sinks listen:
+
+      collectors  while a ``collect()`` is active, on any thread;
+      the logger  while ``CIRCOM_TPU_TIMINGS`` is set: one ``"%s: %.1f ms"``
+                  line (path, ms) to ``circom_compat_tpu_torch.trace``;
+      profiler    while torch.profiler records on this thread: a
+                  ``record_function(name)`` range, on the device trace's
+                  clock, which any capture shows;
+      the ring    while any of the three listens: the last ``RING_SIZE``
+                  spans, host-side, read by ``recent()``; each flagged
+                  ``profiled`` when the profiler was on.
+
+    With none listening a span costs a check of the collectors, the
+    environment knob and ``torch.autograd._profiler_enabled()``.
+  - ``request(rid=None)``: sets the calling thread's current request (a
+    fresh id from ``new_request_id()`` when none is given). A worker thread
+    enters ``request(rid)`` with the id its caller hands it, so the spans of
+    one request share it across threads.
+  - ``collect()``: a context manager yielding a :class:`Trace` that receives
+    every span, on every thread, while it is active.
   - ``device_ms(fn, reps, match)``: the mean device time of one launch of a
     kernel, from the kernel spans torch.profiler records.
 
-Timings use ``time.perf_counter``. CUDA work is asynchronous: a stage
-that names a CUDA device synchronizes it when it starts and when it ends
-(only while it records), so its wall time is its own work and not the
-work queued before it. While a stage records and CUDA is initialised, it
-also holds an NVTX range of its path, so an Nsight capture of a collected
-or logged run shows the same names.
+CUDA work is asynchronous: while a collector or the logger listens, a span
+that names a CUDA device synchronizes it when it starts and when it ends,
+so its time is its own work and not the work queued before it, and holds an
+NVTX range of its path (once CUDA is initialised). Under the profiler alone
+a span synchronizes nothing: its range and the device's operations share
+the capture's clock.
+
+``stage`` is an alias of ``span`` that no module of the package calls.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import logging
 import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
 logger = logging.getLogger("circom_compat_tpu_torch.trace")
 
-_tls = threading.local()
 _LOG_ENV = "CIRCOM_TPU_TIMINGS"
+RING_SIZE = 1 << 16
+
+_tls = threading.local()
+_collectors: Tuple["Trace", ...] = ()  # replaced, never mutated: spans read it unlocked
+_collectors_lock = threading.Lock()
+_span_ids = itertools.count(1)
+_request_ids = itertools.count(1)
+_ring: "collections.deque[Span]" = collections.deque(maxlen=RING_SIZE)
 
 
-def _state():
-    if not hasattr(_tls, "collectors"):
-        _tls.collectors = []  # active Trace objects (innermost last)
-        _tls.stack = []  # active stage-name path
-    return _tls
+class Span(NamedTuple):
+    """One recorded span."""
+
+    name: str
+    path: str
+    span_id: int
+    parent_id: Optional[int]
+    request_id: Optional[int]
+    thread_id: int
+    start_ns: int
+    end_ns: int
+    profiled: bool
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+def _stack() -> list:
+    """This thread's open spans, as (span id, path prefix for children)."""
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    return stack
 
 
 @dataclass(eq=False)  # identity semantics: collect() removes its own Trace
 class Trace:
-    """Stages recorded while a ``collect()`` block was active."""
+    """Spans recorded while a ``collect()`` block was active: ``stages`` as
+    (path, seconds), ``spans`` the full records, both in order of ending."""
 
     stages: List[Tuple[str, float]] = field(default_factory=list)
+    spans: List[Span] = field(default_factory=list)
 
-    def add(self, path: str, seconds: float) -> None:
-        self.stages.append((path, seconds))
-
-    def total(self, prefix: str = "") -> float:
-        """Sum of top-level stage times under ``prefix`` (nested stages are
-        already contained in their parents)."""
-        return sum(
-            t for name, t in self.stages
-            if name.startswith(prefix) and "/" not in name[len(prefix):].lstrip("/")
-        )
+    def add(self, sp: Span) -> None:
+        self.stages.append((sp.path, sp.seconds))
+        self.spans.append(sp)
 
     def as_dict(self) -> dict:
         out: dict = {}
@@ -87,14 +125,40 @@ class Trace:
 
 @contextlib.contextmanager
 def collect() -> Iterator[Trace]:
-    """Capture every ``stage`` entered on this thread into a Trace."""
-    st = _state()
+    """Capture every span, entered on any thread, into a Trace."""
+    global _collectors
     tr = Trace()
-    st.collectors.append(tr)
+    with _collectors_lock:
+        _collectors = _collectors + (tr,)
     try:
         yield tr
     finally:
-        st.collectors.remove(tr)
+        with _collectors_lock:
+            _collectors = tuple(c for c in _collectors if c is not tr)
+
+
+def new_request_id() -> int:
+    """A fresh request id from the process counter."""
+    return next(_request_ids)
+
+
+@contextlib.contextmanager
+def request(rid: Optional[int] = None) -> Iterator[int]:
+    """Make `rid` (a fresh id when None) the calling thread's current
+    request for the block; yields it."""
+    rid = new_request_id() if rid is None else rid
+    prev = getattr(_tls, "rid", None)
+    _tls.rid = rid
+    try:
+        yield rid
+    finally:
+        _tls.rid = prev
+
+
+def recent() -> List[Span]:
+    """The last RING_SIZE spans recorded while any sink listened, oldest
+    first (spans whose children ended before them come after the children)."""
+    return list(_ring)
 
 
 def _sync(device) -> None:
@@ -107,57 +171,51 @@ def _sync(device) -> None:
 
 
 @contextlib.contextmanager
-def stage(name: str, device=None) -> Iterator[None]:
-    """Record one pipeline stage. Nesting produces ``outer/inner`` paths.
-    ``device``: the stage's device, or a parallel.mesh.Mesh; a CUDA device
-    (every card of a mesh) is synchronized at both ends while the stage
-    records. Free when nothing collects and
-    ``CIRCOM_TPU_TIMINGS`` is unset."""
-    st = _state()
+def span(name: str, device=None, root: bool = False) -> Iterator[None]:
+    """Record one span. Nesting produces ``outer/inner`` paths; inside a
+    `root` span (a request boundary such as the server's) paths start
+    afresh, so a stage's path does not depend on who called it. `device`:
+    the span's device, or a parallel.mesh.Mesh; a CUDA device (every card of
+    a mesh) is synchronized at both ends while a collector or the logger
+    listens. Records nothing when no sink listens."""
     log = os.environ.get(_LOG_ENV, "") not in ("", "0")
-    if not st.collectors and not log:
+    timed = bool(_collectors) or log
+    profiled = torch.autograd._profiler_enabled()
+    if not (timed or profiled):
         yield
         return
-    st.stack.append(name)
-    path = "/".join(st.stack)
-    nvtx = torch.cuda.is_initialized()
-    _sync(device)
+    stack = _stack()
+    parent_id, prefix = stack[-1] if stack else (None, "")
+    path = f"{prefix}/{name}" if prefix else name
+    sid = next(_span_ids)
+    stack.append((sid, "" if root else path))
+    nvtx = timed and torch.cuda.is_initialized()
+    if timed:
+        _sync(device)
     if nvtx:
         torch.cuda.nvtx.range_push(path)
-    t0 = time.perf_counter()
+    ranged = torch.profiler.record_function(name) if profiled else contextlib.nullcontext()
+    t0 = time.perf_counter_ns()
     try:
-        yield
-        _sync(device)
+        with ranged:
+            yield
+            if timed:
+                _sync(device)
     finally:
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
         if nvtx:
             torch.cuda.nvtx.range_pop()
-        st.stack.pop()
-        for tr in st.collectors:
-            tr.add(path, dt)
+        stack.pop()
+        sp = Span(name, path, sid, parent_id, getattr(_tls, "rid", None),
+                  threading.get_native_id(), t0, t1, profiled)
+        _ring.append(sp)
+        for tr in _collectors:
+            tr.add(sp)
         if log:
-            logger.info("%s: %.1f ms", path, dt * 1e3)
+            logger.info("%s: %.1f ms", path, (t1 - t0) / 1e6)
 
 
-@contextlib.contextmanager
-def device_profile(logdir: str, enabled: bool = True) -> Iterator[None]:
-    """Capture a torch.profiler trace of the block (host activity, and the
-    device's when CUDA is available) and write it into ``logdir`` as a
-    Chrome trace (chrome://tracing, Perfetto). ``enabled=False`` is a
-    no-op, so call sites can gate on a flag without reindenting."""
-    if not enabled:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(
-        os.path.join(logdir, f"trace_{os.getpid()}_{time.strftime('%Y%m%d_%H%M%S')}.json"))
+stage = span
 
 
 def device_ms(fn, reps: int, match: str, sessions: int = 5):

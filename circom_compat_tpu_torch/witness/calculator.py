@@ -158,7 +158,7 @@ class WitnessCalculator:
 
     def calculate_witness(self, inputs: Inputs, sanity_check: bool = False) -> List[int]:
         """Run the circuit; returns canonical field elements in [0, r)."""
-        with trace.stage("witness.calculate"):
+        with trace.span("witness.calculate"):
             if self.legacy:
                 return self._calculate_witness_legacy(inputs, sanity_check)
             return self._calculate_witness_circom2(inputs, sanity_check)
@@ -177,7 +177,7 @@ class WitnessCalculator:
 
         from ..ops import limbs as limb_codec
 
-        with trace.stage("witness.calculate"):
+        with trace.span("witness.calculate"):
             if not self.legacy:
                 ex = self.instance.exported
                 ex("init")(1 if sanity_check else 0)
