@@ -13,7 +13,10 @@ Phases (each passes or raises; nothing is caught):
      shapes the 2^20-domain prove gives it, word for word (max_abs_err 0);
      K6/K7 at 2^20 pairs and at the path's largest general add (Phase C
      over the level-0 carries: 5,242,880 G1, 1,310,720 G2); K3/K4 also at
-     the 2^22 four-step shape (rows of 2048: ccf_ntt_rows_log11);
+     the 2^22 four-step shape (rows of 2048: ccf_ntt_rows_log11); K10
+     (proof_fold) at the 2^20 prove's windows (w = 13, W = 20) and the 10^4
+     prove's (w = 8, W = 32), its bound the latency of its longest chain of
+     dependent Fq multiplies (K9 in one thread);
   3. each kernel's time (CUDA events, warmed up, averaged), its bound and
      the plain version's time; K3/K4's bounds count the butterflies whose
      twiddle is not one, and their rows are also checked and timed at the
@@ -204,6 +207,21 @@ def device_ms(fn, reps, match):
     if spans < reps:
         print(f"    the profiler recorded {spans} {match} spans for {reps} launches")
     return ms
+
+
+def proof_fold_levels(c: int, W: int, digits: int = 64) -> int:
+    """K10's longest chain of dependent Fq multiplies for 254-bit scalars
+    (64 digits of 4 bits): a G1 add or doubling is two levels, a G2 one
+    three; a ladder is its table (7 doublings, 7 adds) and four doublings
+    and an add a digit. G1: the longer of the folds and the delta1 ladders,
+    two adds, the s A / r B1 ladders, two adds; G2: the longer of its fold
+    and the delta2 ladder, two adds."""
+    def ladder(level):
+        return 14 * level + (digits - 1) * 5 * level
+
+    g1 = max((W - 1) * (c + 1) * 2, ladder(2)) + 2 * 2 + ladder(2) + 2 * 2
+    g2 = max((W - 1) * (c + 1) * 3, ladder(3)) + 2 * 3
+    return max(g1, g2)
 
 
 def max_abs_err(a, b, chunk=1 << 26):
@@ -1508,12 +1526,13 @@ def main() -> int:
         return x
 
     def check(name, kernel_fn, plain_fn, reps, nbytes, mads, replaces, source, note="", device=None,
-              per_sm_clock=64):
+              per_sm_clock=64, latency_ms=None):
         """Kernel vs plain on the same inputs (word for word), then the
         kernel's time (and, given `device`, a substring of its kernel's
         name, its profiler device time); the first check of a name makes
         its kernels row. per_sm_clock: the bound's operation rate
-        (bound())."""
+        (bound()); latency_ms, given, is the bound instead (a kernel whose
+        time is one dependent chain)."""
         torch.cuda.synchronize()
         got = kernel_fn()
         want, plain_ms = once_ms(plain_fn)
@@ -1525,7 +1544,8 @@ def main() -> int:
         del got, want, got_t, want_t
         _, ms = timed(kernel_fn, reps)
         dev_ms = device_ms(kernel_fn, reps, device) if device else None
-        b_ms, b_by = bound(nbytes, mads, per_sm_clock)
+        b_ms, b_by = bound(nbytes, mads, per_sm_clock) if latency_ms is None else (latency_ms,
+                                                                                  "latency")
         shown = "" if device is None else (
             f", device {dev_ms:.4f} ms (profiler)" if dev_ms is not None else ", device not measured")
         print(f"[2] {name}{note}: equal to plain (max_abs_err 0, tolerance 0: integer "
@@ -1763,6 +1783,43 @@ def main() -> int:
                 registers={mode: row["registers"] for mode, row in res.items()},
                 spill_bytes={mode: row["spill_stores"] + row["spill_loads"] for mode, row in res.items()})
 
+    # K10 at the prove's two window shapes (2^20: w = 13, W = 20; 10^4: w =
+    # 8, W = 32): window sums of two pool points each (Z != 1), with identity
+    # windows (the top one of each MSM, every third of L) and two equal
+    # consecutive windows; the key's five points from the pools, staged as
+    # DeviceProvingKey stages them (Z = one); r and s random. Its bound is
+    # latency: the longest chain of dependent Fq multiplies
+    # (proof_fold_levels) times one multiply's latency, K9's 64 dependent
+    # lazy Montgomery multiplies in one thread (device time) over 64
+    k9_one = fbn.run(1, K9_K, ops=("mont_mul_lazy",), device=dev)["mont_mul_lazy"]
+    mul_by = "device" if k9_one["device_ms"] is not None else "event (wrapper included)"
+    mul_ms = (k9_one["device_ms"] or k9_one["event_ms"]) / K9_K
+    print(f"[3] K9 in one thread, {K9_K} dependent mont_mul_lazy: {mul_ms * 1e3:.4f} us a "
+          f"multiply by {mul_by} time")
+    xy1, xy2 = pool_tensor(False, g1_pool), pool_tensor(True, g2_pool)
+
+    def pool_sums(g2, xy, count):
+        idx = torch.randint(0, POOL, (2, count), device=dev, generator=gen)
+        return ck.point_add_plain(cv.affine_to_proj(xy[idx[0]], g2), cv.affine_to_proj(xy[idx[1]], g2))
+
+    fixed10 = (cv.affine_to_proj(xy1[:3], False), cv.affine_to_proj(xy2[:2], True))
+    for c10, w10 in ((13, W), (8, 32)):
+        s1 = pool_sums(False, xy1, 4 * w10).reshape(4, w10, 3, 8)
+        s2 = pool_sums(True, xy2, w10)
+        s1[:, -1] = cv.proj_identity_const(False, dev)
+        s1[2, ::3] = cv.proj_identity_const(False, dev)
+        s1[0, 4], s2[1], s2[6] = s1[0, 3], cv.proj_identity_const(True, dev), s2[5]
+        args10 = (s1, s2, *fixed10, rng.randrange(R), rng.randrange(R), c10)
+        check("proof_fold", lambda: ck.proof_fold(*args10), lambda: ck.proof_fold_plain(*args10),
+              20, 576 * w10 + 1056, 0, "circom_compat_tpu/models/groth16_jax.py:537",
+              CSRC, f" w={c10}, W={w10}", "ccf_proof_fold",
+              latency_ms=proof_fold_levels(c10, w10) * mul_ms)
+    row10 = ptxas["ccf_proof_fold_kernel"]
+    results["proof_fold"].update(registers=row10["registers"],
+                                 spill_bytes=row10["spill_stores"] + row10["spill_loads"],
+                                 chain_levels=proof_fold_levels(13, W), fq_mul_latency_us=mul_ms * 1e3)
+    del s1, s2, args10
+
     def reset_all():
         fk.reset_launches()
         ck.reset_launches()
@@ -1843,8 +1900,8 @@ def main() -> int:
         gd.prove_prepared(dpk, r_, s_, asg, wbits)
     names4 = [name for name, _ in tr4.stages]
     if names4 != ["prove.encode", "prove.witness_map", "prove.msm/sorts", "prove.msm/msm_g1",
-                  "prove.msm/msm_g2", "prove.msm", "prove.assemble/readback",
-                  "prove.assemble/fold", "prove.assemble"]:
+                  "prove.msm/msm_g2", "prove.msm", "prove.assemble/fold",
+                  "prove.assemble/readback", "prove.assemble"]:
         raise AssertionError(f"the prove's trace stages are {names4}")
     print("[4] trace stages of one prove (s, each ended by a device sync): "
           + json.dumps({k2: round(v, 4) for k2, v in tr4.as_dict().items()}))

@@ -44,6 +44,7 @@ SIGNATURES = {
     "curve_kernels": {
         "ccf_point_add": [_I, _I, _P, _P, _P, _L, _P],
         "ccf_point_tile_scan": [_I, _I, _P, _P, _P, _P, _L, _I, _P],
+        "ccf_proof_fold": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     },
 }
 

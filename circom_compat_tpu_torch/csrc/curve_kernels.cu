@@ -1,4 +1,5 @@
-// G1/G2 point kernels of the MSM: K6/K7 point_add, K8 point_tile_scan.
+// G1/G2 point kernels: K6/K7 point_add, K8 point_tile_scan (the MSM) and
+// K10 proof_fold (the proof's points from the MSMs' window sums).
 //
 // Points are homogeneous projective (X, Y, Z), identity (0, 1, 0), lazy
 // Montgomery words: G1 24 words (X, Y, Z), G2 48 words (X.c0, X.c1, Y.c0,
@@ -9,6 +10,8 @@
 //
 // Plain C entry points (ctypes); each launches on the caller's stream and
 // returns cudaGetLastError().
+#include <cstring>
+
 #include "field.cuh"
 
 using namespace ccf;
@@ -357,7 +360,388 @@ __device__ __forceinline__ void point_add_block(const uint32_t* __restrict__ p, 
 
 inline unsigned blocks_for(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
 
+// ---- K10: the proof's points from the window sums --------------------------
+// Replaces no TPU kernel: the JAX package folds the window sums and applies
+// the r/s algebra on the host (circom_compat_tpu/models/groth16_jax.py:537
+// assemble_proof, ops/msm.py:571 _fold_windows_host), as the port did until
+// this kernel; at 10^4 constraints that host work was three quarters of a
+// prove on this card. From the window sums of the five MSMs it computes
+//   A  = A_msm + alpha1 + r delta1
+//   B1 = B1_msm + beta1 + s delta1
+//   B2 = B2_msm + beta2 + s delta2
+//   C  = L + H - rs delta1 + s A + r B1
+// with X_msm = sum_w 2^(c w) S_w (Horner, most significant window first),
+// in projective words: out = [A (24 words), B2 (48), C (24)].
+// Bound: latency. The work is a few chains of ~250 doublings and ~70 adds
+// each, every step waiting on the last; the bytes (W window sums in, 96
+// words out) and the operations are small. One Fq multiply alone in a
+// thread is a dependent chain of ~330 carried multiply-adds (0.56 us on an
+// H100, K9 in one thread), and the longest chain here is 1,324 of them.
+// Design:
+//  - A team of lanes holds one point, the same words in every lane, and
+//    computes each level of a formula's independent products at once, one
+//    product a lane, then every lane reads them all back by shuffle and
+//    forms the sums itself. G1 (team of 8): an add (RCB algorithm 7, 12M)
+//    is two levels of six products, a doubling (RCB algorithm 9, 6M + 2S)
+//    two levels of four. G2 (team of 32): a lane computes one term of a
+//    Karatsuba Fq2 product, 3 lanes a product; an add is three levels (6
+//    products, the two mul_b3, 6 products), a doubling three (4, 2, 3). A
+//    step costs two or three multiplies' latency instead of 8 to 18.
+//  - Teams: warp 0 the four G1 folds, warp 1 the ladders r, s, rs on
+//    delta1, warp 2 the G2 fold, warp 3 the ladder s on delta2; then warp 0
+//    adds A and B1 and runs the ladders s A and r B1, warp 1 adds
+//    L + H - rs delta1 and warp 2 B2. The G1 and G2 warps meet at named
+//    barriers of their own, so neither waits for the other.
+//  - Complete formulas: identity window sums, equal operands and zero
+//    scalars need no branch (ProveServer warms up with r = s = 0).
+//  - Ladders by 4-bit windows, most significant first, over the digits of
+//    the largest scalar of the step: a table of j P (j < 16, j = 0 the
+//    identity) in the team's shared rows, then four doublings and one add a
+//    digit. The scalars come by value in the kernel's parameters: rs
+//    instead of -rs keeps every scalar as short as r and s, and C adds
+//    -(rs delta1), a subtraction from zero.
+// Each value is the same sequence of field operations as in ops/curve.py's
+// proj_add / proj_double and ops/curve_kernels.py's proof_fold_plain, which
+// runs the teams' points as a batch: kernel and plain version agree word
+// for word.
+constexpr int kFoldThreads = 128;  // four warps
+constexpr int kLadderBits = 4;
+constexpr int kLadderRows = 1 << kLadderBits;
+
+__device__ __forceinline__ Fe fq_add(const Fe& a, const Fe& b) { return ccf::add<Fq>(a, b); }
+__device__ __forceinline__ Fe fq_sub(const Fe& a, const Fe& b) { return ccf::sub<Fq>(a, b); }
+__device__ __forceinline__ Fe fq_mul(const Fe& a, const Fe& b) { return mul_lazy<Fq>(a, b); }
+
+struct F2 {
+  Fe c0, c1;
+};
+
+__device__ __forceinline__ F2 f2_add(const F2& a, const F2& b) { return {fq_add(a.c0, b.c0), fq_add(a.c1, b.c1)}; }
+__device__ __forceinline__ F2 f2_sub(const F2& a, const F2& b) { return {fq_sub(a.c0, b.c0), fq_sub(a.c1, b.c1)}; }
+
+__device__ __forceinline__ Fe choose(bool c, const Fe& a, const Fe& b) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.w[j] = c ? a.w[j] : b.w[j];
+  return r;
+}
+
+__device__ __forceinline__ F2 choose(bool c, const F2& a, const F2& b) {
+  return {choose(c, a.c0, b.c0), choose(c, a.c1, b.c1)};
+}
+
+// The k-th of v0, vs... (v0 for k past the end), by selects: no lane
+// takes a branch of its own.
+template <class T, class... Ts>
+__device__ __forceinline__ T pick(int k, const T& v0, const Ts&... vs) {
+  T r = v0;
+  int i = 0;
+  ((r = choose(k == ++i, vs, r)), ...);
+  return r;
+}
+
+// The lanes of one team: kWidth aligned lanes of a warp.
+template <int kWidth>
+struct Team {
+  int t;          // this lane's index in the team
+  unsigned mask;  // the team's lanes
+  __device__ __forceinline__ Team()
+      : t(threadIdx.x % kWidth),
+        mask((unsigned)((1ull << kWidth) - 1) << (threadIdx.x % 32 / kWidth * kWidth)) {}
+  // lane src's v, in every lane of the team
+  __device__ __forceinline__ Fe bcast(const Fe& v, int src) const {
+    Fe r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r.w[j] = __shfl_sync(mask, v.w[j], src, kWidth);
+    return r;
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
+};
+
+// G1 on a team of 8: mul_b3 is 9a = 8a + a.
+struct G1Team {
+  struct P {
+    Fe x, y, z;
+  };
+  static constexpr int kWidth = 8, kWords = 24;
+  using T = Team<kWidth>;
+  static __device__ __forceinline__ Fe mul_b3(const Fe& a) {
+    const Fe x2 = fq_add(a, a), x4 = fq_add(x2, x2);
+    return fq_add(fq_add(x4, x4), a);
+  }
+  static __device__ __forceinline__ P load(const uint32_t* p) { return {ccf::load(p), ccf::load(p + 8), ccf::load(p + 16)}; }
+  static __device__ __forceinline__ void store(uint32_t* p, const P& a) {
+    ccf::store(p, a.x);
+    ccf::store(p + 8, a.y);
+    ccf::store(p + 16, a.z);
+  }
+  static __device__ __forceinline__ P identity() { return {ccf::zero(), load_const(kFqOne), ccf::zero()}; }
+  static __device__ __forceinline__ P neg(const P& a) { return {a.x, fq_sub(ccf::zero(), a.y), a.z}; }
+
+  // p += q (RCB algorithm 7); lanes 0-5 form the products
+  static __device__ __forceinline__ void add(const T& tm, P& p, const uint32_t* q) {
+    const Fe x2 = ccf::load(q), y2 = ccf::load(q + 8), z2 = ccf::load(q + 16);
+    const Fe m = fq_mul(pick(tm.t, p.x, p.y, p.z, fq_add(p.x, p.y), fq_add(p.y, p.z), fq_add(p.x, p.z)),
+                        pick(tm.t, x2, y2, z2, fq_add(x2, y2), fq_add(y2, z2), fq_add(x2, z2)));
+    Fe t0 = tm.bcast(m, 0), t1 = tm.bcast(m, 1), t2 = tm.bcast(m, 2);
+    const Fe t3 = fq_sub(tm.bcast(m, 3), fq_add(t0, t1));
+    const Fe t4 = fq_sub(tm.bcast(m, 4), fq_add(t1, t2));
+    Fe y3 = fq_sub(tm.bcast(m, 5), fq_add(t0, t2));
+    t0 = fq_add(fq_add(t0, t0), t0);
+    t2 = mul_b3(t2);
+    const Fe z3 = fq_add(t1, t2);
+    t1 = fq_sub(t1, t2);
+    y3 = mul_b3(y3);
+    // X3 = t3 t1 - t4 y3, Y3 = t1 z3 + y3 t0, Z3 = z3 t4 + t0 t3
+    const Fe m2 = fq_mul(pick(tm.t, t3, t4, t1, y3, z3, t0), pick(tm.t, t1, y3, z3, t0, t4, t3));
+    p.x = fq_sub(tm.bcast(m2, 0), tm.bcast(m2, 1));
+    p.y = fq_add(tm.bcast(m2, 2), tm.bcast(m2, 3));
+    p.z = fq_add(tm.bcast(m2, 4), tm.bcast(m2, 5));
+  }
+
+  // p = 2p (RCB algorithm 9); lanes 0-3 form the products
+  static __device__ __forceinline__ void dbl(const T& tm, P& p) {
+    const Fe m = fq_mul(pick(tm.t, p.y, p.y, p.z, p.x), pick(tm.t, p.y, p.z, p.z, p.y));
+    const Fe t0 = tm.bcast(m, 0), t1 = tm.bcast(m, 1), xy = tm.bcast(m, 3);
+    Fe z3 = fq_add(t0, t0);
+    z3 = fq_add(z3, z3);
+    z3 = fq_add(z3, z3);
+    const Fe t2 = mul_b3(tm.bcast(m, 2));
+    const Fe y3 = fq_add(t0, t2);
+    const Fe u = fq_sub(t0, fq_add(fq_add(t2, t2), t2));
+    // X3 = t2 z3, Z3 = t1 z3; Y = X3 + u y3, X = 2 u xy
+    const Fe m2 = fq_mul(pick(tm.t, t2, t1, u, u), pick(tm.t, z3, z3, y3, xy));
+    p.z = tm.bcast(m2, 1);
+    p.y = fq_add(tm.bcast(m2, 0), tm.bcast(m2, 2));
+    const Fe x = tm.bcast(m2, 3);
+    p.x = fq_add(x, x);
+  }
+};
+
+// G2 on a team of 32: Fq2 product k is formed by lanes 3k + j, j = 0, 1,
+// 2 the Karatsuba terms a0 b0, a1 b1, (a0 + a1)(b0 + b1).
+struct G2Team {
+  struct P {
+    F2 x, y, z;
+  };
+  static constexpr int kWidth = 32, kWords = 48;
+  using T = Team<kWidth>;
+  static __device__ __forceinline__ F2 load2(const uint32_t* p) { return {ccf::load(p), ccf::load(p + 8)}; }
+  static __device__ __forceinline__ P load(const uint32_t* p) { return {load2(p), load2(p + 16), load2(p + 32)}; }
+  static __device__ __forceinline__ void store(uint32_t* p, const P& a) {
+    const F2* c[3] = {&a.x, &a.y, &a.z};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      ccf::store(p + 16 * i, c[i]->c0);
+      ccf::store(p + 16 * i + 8, c[i]->c1);
+    }
+  }
+  static __device__ __forceinline__ P identity() {
+    return {{ccf::zero(), ccf::zero()}, {load_const(kFqOne), ccf::zero()}, {ccf::zero(), ccf::zero()}};
+  }
+  // this lane's Karatsuba operand of a
+  static __device__ __forceinline__ Fe term(const T& tm, const F2& a) {
+    const int j = tm.t % 3;
+    return choose(j == 0, a.c0, choose(j == 1, a.c1, fq_add(a.c0, a.c1)));
+  }
+  // the term of 3b' = (kB3C0, kB3C1), with kB3Sum for the sum
+  static __device__ __forceinline__ Fe b3_term(const T& tm) {
+    const int j = tm.t % 3;
+    return load_const(j == 0 ? kB3C0 : j == 1 ? kB3C1 : kB3Sum);
+  }
+  // Fq2 product k from its lanes' terms: (v0 - v1, (s - v0) - v1)
+  static __device__ __forceinline__ F2 product(const T& tm, const Fe& m, int k) {
+    const Fe v0 = tm.bcast(m, 3 * k), v1 = tm.bcast(m, 3 * k + 1), s = tm.bcast(m, 3 * k + 2);
+    return {fq_sub(v0, v1), fq_sub(fq_sub(s, v0), v1)};
+  }
+
+  // p += q (RCB algorithm 7): products of lanes 0-17, 0-5, 0-17
+  static __device__ __forceinline__ void add(const T& tm, P& p, const uint32_t* q) {
+    const int k = tm.t / 3;
+    const P b = load(q);
+    const Fe m = fq_mul(
+        term(tm, pick(k, p.x, p.y, p.z, f2_add(p.x, p.y), f2_add(p.y, p.z), f2_add(p.x, p.z))),
+        term(tm, pick(k, b.x, b.y, b.z, f2_add(b.x, b.y), f2_add(b.y, b.z), f2_add(b.x, b.z))));
+    F2 t0 = product(tm, m, 0), t1 = product(tm, m, 1), t2 = product(tm, m, 2);
+    const F2 t3 = f2_sub(product(tm, m, 3), f2_add(t0, t1));
+    const F2 t4 = f2_sub(product(tm, m, 4), f2_add(t1, t2));
+    F2 y3 = f2_sub(product(tm, m, 5), f2_add(t0, t2));
+    t0 = f2_add(f2_add(t0, t0), t0);
+    const Fe mb = fq_mul(term(tm, choose(k == 0, t2, y3)), b3_term(tm));  // mul_b3 of t2, y3
+    t2 = product(tm, mb, 0);
+    y3 = product(tm, mb, 1);
+    const F2 z3 = f2_add(t1, t2);
+    t1 = f2_sub(t1, t2);
+    const Fe m2 = fq_mul(term(tm, pick(k, t3, t4, t1, y3, z3, t0)), term(tm, pick(k, t1, y3, z3, t0, t4, t3)));
+    p.x = f2_sub(product(tm, m2, 0), product(tm, m2, 1));
+    p.y = f2_add(product(tm, m2, 2), product(tm, m2, 3));
+    p.z = f2_add(product(tm, m2, 4), product(tm, m2, 5));
+  }
+
+  // p = 2p (RCB algorithm 9): products of lanes 0-11, 0-5, 0-8
+  static __device__ __forceinline__ void dbl(const T& tm, P& p) {
+    const int k = tm.t / 3;
+    const Fe m = fq_mul(term(tm, pick(k, p.y, p.y, p.z, p.x)), term(tm, pick(k, p.y, p.z, p.z, p.y)));
+    const F2 t0 = product(tm, m, 0), t1 = product(tm, m, 1), zz = product(tm, m, 2), xy = product(tm, m, 3);
+    F2 z3 = f2_add(t0, t0);
+    z3 = f2_add(z3, z3);
+    z3 = f2_add(z3, z3);
+    const Fe mb = fq_mul(term(tm, choose(k == 0, zz, t1)), choose(k == 0, b3_term(tm), term(tm, z3)));
+    const F2 t2 = product(tm, mb, 0);  // mul_b3(zz)
+    p.z = product(tm, mb, 1);          // t1 z3
+    const F2 y3 = f2_add(t0, t2);
+    const F2 u = f2_sub(t0, f2_add(f2_add(t2, t2), t2));
+    const Fe m2 = fq_mul(term(tm, pick(k, t2, u, u)), term(tm, pick(k, z3, y3, xy)));
+    p.y = f2_add(product(tm, m2, 0), product(tm, m2, 1));
+    const F2 x = product(tm, m2, 2);
+    p.x = f2_add(x, x);
+  }
+};
+
+// sum_w 2^(c w) sums[w], in every lane of the team
+template <class GT>
+__device__ __noinline__ typename GT::P horner_fold(const uint32_t* sums, int W, int c) {
+  const typename GT::T tm;
+  typename GT::P acc = GT::load(sums + (W - 1) * GT::kWords);
+  for (int w = W - 2; w >= 0; --w) {
+    for (int i = 0; i < c; ++i) GT::dbl(tm, acc);
+    GT::add(tm, acc, sums + w * GT::kWords);
+  }
+  return acc;
+}
+
+// 4-bit digits of the largest of n scalars
+__device__ __forceinline__ int ladder_digits(const uint32_t (*k)[8], int n) {
+  int nd = 0;
+  for (int i = 0; i < n; ++i) {
+    for (int w = 7; w >= 0; --w) {
+      if (k[i][w]) {
+        nd = max(nd, w * (32 / kLadderBits) + (32 - __clz(k[i][w]) + kLadderBits - 1) / kLadderBits);
+        break;
+      }
+    }
+  }
+  return nd;
+}
+
+// k p over nd digits, in every lane of the team; table: kLadderRows rows of
+// the team's own, row j = j p, built as 2 T[j/2] (j even) or
+// T[(j+1)/2] + T[(j-1)/2]. Lane 0 of the team writes the rows.
+template <class GT>
+__device__ __noinline__ typename GT::P ladder(const typename GT::P& p, const uint32_t* k, int nd, uint32_t* table) {
+  const typename GT::T tm;
+  if (tm.t == 0) {
+    GT::store(table, GT::identity());
+    GT::store(table + GT::kWords, p);
+  }
+  tm.sync();
+  for (int j = 2; j < kLadderRows; ++j) {
+    typename GT::P r = GT::load(table + (j + 1) / 2 * GT::kWords);
+    if (j & 1) {
+      GT::add(tm, r, table + (j - 1) / 2 * GT::kWords);
+    } else {
+      GT::dbl(tm, r);
+    }
+    if (tm.t == 0) GT::store(table + j * GT::kWords, r);
+    tm.sync();
+  }
+  auto digit = [&](int i) { return (k[i / 8] >> (kLadderBits * (i % 8))) & (kLadderRows - 1); };
+  if (nd == 0) return GT::identity();
+  typename GT::P acc = GT::load(table + digit(nd - 1) * GT::kWords);
+  for (int i = nd - 2; i >= 0; --i) {
+    for (int b = 0; b < kLadderBits; ++b) GT::dbl(tm, acc);
+    GT::add(tm, acc, table + digit(i) * GT::kWords);
+  }
+  return acc;
+}
+
+// A barrier over `threads` threads of the block (whole warps); the
+// non-.aligned form, which threads may reach from divergent paths.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One block of kFoldThreads; sc: r, s, rs.
+__device__ __forceinline__ void proof_fold_block(const uint32_t* __restrict__ g1_sums,
+                                                 const uint32_t* __restrict__ g2_sums,
+                                                 const uint32_t* __restrict__ g1_fixed,
+                                                 const uint32_t* __restrict__ g2_fixed, const uint32_t (&sc)[3][8],
+                                                 int W, int c, uint32_t* __restrict__ out) {
+  constexpr int P1 = G1Team::kWords, P2 = G2Team::kWords;  // words a point
+  __shared__ __align__(16) uint32_t tab1[3][kLadderRows * P1];  // the G1 ladders' tables
+  __shared__ __align__(16) uint32_t tab2[kLadderRows * P2];
+  __shared__ __align__(16) uint32_t fold1[4][P1];  // A_msm, B1_msm, L, H
+  __shared__ __align__(16) uint32_t lad1[3][P1];   // r delta1, s delta1, rs delta1
+  __shared__ __align__(16) uint32_t ab[2][P1];     // A, B1
+  __shared__ __align__(16) uint32_t part[3][P1];   // s A, r B1, L + H - rs delta1
+  __shared__ __align__(16) uint32_t fold2[P2], lad2[P2];  // B2_msm, s delta2
+  __shared__ uint32_t ks[3][8];
+  const int warp = threadIdx.x / 32, team = threadIdx.x % 32 / G1Team::kWidth;
+  const bool lead1 = threadIdx.x % G1Team::kWidth == 0, lead2 = threadIdx.x % 32 == 0;
+  if (threadIdx.x < 24) ks[threadIdx.x / 8][threadIdx.x % 8] = sc[threadIdx.x / 8][threadIdx.x % 8];
+  __syncthreads();
+
+  if (warp < 2) {  // G1: barrier 1 over warps 0-1
+    if (warp == 0) {
+      const G1Team::P f = horner_fold<G1Team>(g1_sums + team * W * P1, W, c);
+      if (lead1) G1Team::store(fold1[team], f);
+    } else if (team < 3) {
+      const G1Team::P l = ladder<G1Team>(G1Team::load(g1_fixed + 2 * P1), ks[team], ladder_digits(ks, 3), tab1[team]);
+      if (lead1) G1Team::store(lad1[team], l);
+    }
+    named_barrier(1, 64);
+    const G1Team::T tm;
+    if (warp == 0 && team < 2) {  // A (team 0), B1 (team 1); then s A, r B1
+      G1Team::P p = G1Team::load(fold1[team]);
+      G1Team::add(tm, p, g1_fixed + team * P1);
+      G1Team::add(tm, p, lad1[team]);
+      if (lead1) G1Team::store(ab[team], p);
+      const G1Team::P l = ladder<G1Team>(p, ks[1 - team], ladder_digits(ks, 2), tab1[team]);
+      if (lead1) G1Team::store(part[team], l);
+    } else if (warp == 1 && team == 0) {
+      G1Team::P p = G1Team::load(fold1[2]);
+      G1Team::add(tm, p, fold1[3]);
+      if (lead1) G1Team::store(part[2], G1Team::neg(G1Team::load(lad1[2])));
+      tm.sync();
+      G1Team::add(tm, p, part[2]);
+      tm.sync();
+      if (lead1) G1Team::store(part[2], p);
+    }
+    named_barrier(1, 64);
+    if (warp == 0 && team == 0) {
+      G1Team::P p = G1Team::load(part[2]);
+      G1Team::add(tm, p, part[0]);
+      G1Team::add(tm, p, part[1]);
+      if (lead1) {
+        G1Team::store(out + P1 + P2, p);
+        G1Team::store(out, G1Team::load(ab[0]));
+      }
+    }
+  } else {  // G2: barrier 2 over warps 2-3
+    if (warp == 2) {
+      const G2Team::P f = horner_fold<G2Team>(g2_sums, W, c);
+      if (lead2) G2Team::store(fold2, f);
+    } else {
+      const G2Team::P l = ladder<G2Team>(G2Team::load(g2_fixed + P2), ks[1], ladder_digits(ks + 1, 1), tab2);
+      if (lead2) G2Team::store(lad2, l);
+    }
+    named_barrier(2, 64);
+    if (warp == 2) {
+      const G2Team::T tm;
+      G2Team::P p = G2Team::load(fold2);
+      G2Team::add(tm, p, g2_fixed);
+      G2Team::add(tm, p, lad2);
+      if (lead2) G2Team::store(out + P1, p);
+    }
+  }
+}
+
 }  // namespace
+
+// K10's scalars, passed by value in the kernel's parameters
+struct CcfProofScalars {
+  uint32_t k[3][8];  // r, s, rs mod the group order, canonical words
+};
 
 extern "C" {
 
@@ -393,6 +777,28 @@ int ccf_point_add(int g2, int mixed, const void* p, const void* q, void* out, lo
     kernel<<<blocks_for(n, per_block), kAddThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
   }
+  return (int)cudaGetLastError();
+}
+
+// The entry kernel has a C name, which the ptxas report keys by.
+__global__ void __launch_bounds__(kFoldThreads, 1)
+    ccf_proof_fold_kernel(const uint32_t* __restrict__ g1_sums, const uint32_t* __restrict__ g2_sums,
+                          const uint32_t* __restrict__ g1_fixed, const uint32_t* __restrict__ g2_fixed,
+                          const CcfProofScalars sc, int W, int c, uint32_t* __restrict__ out) {
+  proof_fold_block(g1_sums, g2_sums, g1_fixed, g2_fixed, sc.k, W, c, out);
+}
+
+// r, s, rs: 24 canonical words on the host, passed by value as the kernel's
+// parameter; g1_sums (4, W, 3, 8) [A, B1, L, H], g2_sums (W, 3, 2, 8),
+// g1_fixed (3, 3, 8) [alpha1, beta1, delta1], g2_fixed (2, 3, 2, 8)
+// [beta2, delta2]; out 96 words.
+int ccf_proof_fold(const void* g1_sums, const void* g2_sums, const void* g1_fixed, const void* g2_fixed,
+                   const void* scalars, int W, int c, void* out, void* stream) {
+  CcfProofScalars sc;
+  memcpy(&sc, scalars, sizeof(sc));
+  ccf_proof_fold_kernel<<<1, kFoldThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)g1_sums, (const uint32_t*)g2_sums, (const uint32_t*)g1_fixed, (const uint32_t*)g2_fixed,
+      sc, W, c, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@ staged DeviceProvingKey stays resident and the work is pipelined:
   host witness workers (a thread pool, one WitnessCalculator per thread)
       -> the device prove core (prove_core; kernel launches are
          asynchronous, so the next witness is computed meanwhile)
-      -> host proof assembly (readback, Horner fold, r/s algebra)
+      -> proof assembly (assemble_resident: on a card K10 folds the window
+         sums and applies the r/s algebra, and three points come back)
 
 at most `inflight` proves queued on the device at once. Per-proof latency
 equals the single prove's; results come back in input order.
@@ -100,11 +101,8 @@ class BatchProver:
         def drain_one():
             i, w, (g1, g2, _) = pending.get()
             r, s = rs[i]
-            with trace.request(rids[i]), trace.span("prove.assemble", dpk.device):
-                with trace.span("readback", dpk.device):
-                    g1, g2 = g1.cpu().numpy(), g2.cpu().numpy()
-                with trace.span("fold", dpk.device):
-                    proof = gd.assemble_proof(dpk.pk, r, s, g1, g2, wb)
+            with trace.request(rids[i]):
+                proof = gd.assemble_resident(dpk, r, s, g1, g2, wb)
             results[i] = BatchResult(
                 proof=proof, public_inputs=[v % R_SCALAR for v in w[1 : dpk.num_inputs]],
                 witness=list(w) if self.keep_witness else None)

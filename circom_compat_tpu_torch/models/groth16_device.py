@@ -8,8 +8,9 @@ prove_prepared runs, for a staged DeviceProvingKey:
      by A, B1 and B2), its aux part (L) and h (H),
   5. the five MSMs' window sums: A, B1, L and H in G1 through one batched
      bucket reduce, B2 in G2 through another (ops/msm.py),
-  6. on the host: the window sums decoded, Horner-folded, and the r/s
-     randomizer algebra (assemble_proof).
+  6. the proof's points (assemble_proof): on a card K10 Horner-folds the
+     window sums and applies the r/s randomizer algebra there, and three
+     points come back; elsewhere the sums come back and the host folds.
 
 Every entry point runs on the card unless the caller passes device="cpu",
 where the kernel wrappers run their plain versions.
@@ -28,6 +29,7 @@ from ..circom.zkey import ConstraintMatrices, ProvingKey
 from ..constants import R_SCALAR
 from ..device import resolve_device  # noqa: F401  (re-exported: the port's device rule)
 from ..ops import curve as cv
+from ..ops import curve_kernels as ck
 from ..ops import field as fl
 from ..ops import field_kernels as fk
 from ..ops import limbs as limb_codec
@@ -49,6 +51,11 @@ def _sorted_coo(rows, cols, vals_mont_u16, device):
         _to_device(np.asarray(cols, np.int64)[order], device),
         _to_device(limb_codec.words_view(np.asarray(vals_mont_u16)[order]), device),
     )
+
+
+def _stage_points(xy: np.ndarray, g2: bool, device) -> torch.Tensor:
+    """Affine words (zero rows for infinity) -> projective words on device."""
+    return cv.affine_to_proj(torch.from_numpy(xy), g2).to(device)
 
 
 @dataclass
@@ -95,14 +102,17 @@ class DeviceMatrices:
 class DeviceProvingKey:
     """The proving key's query sections and the witness map's matrices,
     staged on one device as Montgomery words: G1 sections (n, 2, 8), B2
-    (n, 2, 2, 8). The host ProvingKey keeps the vk and the few single
-    points the r/s algebra needs."""
+    (n, 2, 2, 8). The r/s algebra's key points are staged beside them
+    (fixed_g1: alpha1, beta1, delta1 (3, 3, 8); fixed_g2: beta2, delta2
+    (2, 3, 2, 8); projective, for K10); the host ProvingKey keeps the vk."""
 
     pk: ProvingKey
     n_vars: int
     aux_len: int
     device: torch.device
     matrices: DeviceMatrices
+    fixed_g1: torch.Tensor
+    fixed_g2: torch.Tensor
     queries: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     @property
@@ -134,11 +144,12 @@ class DeviceProvingKey:
         }
         queries["b2"] = _to_device(
             limb_codec.words_view(pk.b_g2_query.limbs).reshape(n, 2, 2, 8), dev)
+        fixed_g1, fixed_g2 = stage_fixed(pk, dev)
         return DeviceProvingKey(
             pk=pk, n_vars=n, aux_len=len(pk.l_query), device=dev,
             matrices=DeviceMatrices.stage(matrices, num_constraints, num_inputs,
                                           pk.domain_size, dev),
-            queries=queries,
+            queries=queries, fixed_g1=fixed_g1, fixed_g2=fixed_g2,
         )
 
     @staticmethod
@@ -149,9 +160,10 @@ class DeviceProvingKey:
         return DeviceProvingKey.build(pk, matrices, num_constraints, num_inputs, device)
 
     def nbytes(self) -> int:
-        """Device bytes of the staged key (queries, matrices, NTT tables)."""
-        return self.matrices.nbytes() + sum(t.numel() * t.element_size()
-                                            for t in self.queries.values())
+        """Device bytes of the staged key (queries, key points, matrices, NTT
+        tables)."""
+        return self.matrices.nbytes() + sum(t.numel() * t.element_size() for t in
+                                            [*self.queries.values(), self.fixed_g1, self.fixed_g2])
 
 
 def matrices_from_rows(rows_a, rows_b, num_inputs: int, num_constraints: int,
@@ -228,8 +240,15 @@ def prove_core(dpk: DeviceProvingKey, asg_plain: torch.Tensor, window_bits: int)
     return g1, g2, h
 
 
-def assemble_proof(pk: ProvingKey, r: int, s: int, g1_sums, g2_sums,
-                   window_bits: int) -> Proof:
+def stage_fixed(pk: ProvingKey, device):
+    """The r/s algebra's key points as projective words on `device`:
+    (alpha1, beta1, delta1) (3, 3, 8) and (beta2, delta2) (2, 3, 2, 8)."""
+    return (_stage_points(cv.encode_g1_affine([pk.vk.alpha_g1, pk.beta_g1, pk.delta_g1]),
+                          False, device),
+            _stage_points(cv.encode_g2_affine([pk.vk.beta_g2, pk.vk.delta_g2]), True, device))
+
+
+def _assemble_host(pk: ProvingKey, r: int, s: int, g1_sums, g2_sums, window_bits: int) -> Proof:
     """Host: decode the window sums, Horner-fold, apply the r/s algebra."""
     g1o, g2o = rc.G1, rc.G2
     g_a_msm, g_b1_msm, g_l, g_h = (
@@ -245,6 +264,43 @@ def assemble_proof(pk: ProvingKey, r: int, s: int, g1_sums, g2_sums,
     g_c = g1o.add(g_c, g1o.mul(g_b1, r))
     g_c = g1o.add(g_c, g1o.mul(pk.delta_g1, (-r * s) % R_SCALAR))
     return Proof(a=g_a, b=g_b2, c=g_c)
+
+
+def assemble_proof(pk: ProvingKey, r: int, s: int, g1_sums, g2_sums, window_bits: int,
+                   fixed=None) -> Proof:
+    """The proof from the five MSMs' window sums, G1 (4, W, 3, 8) [A, B1,
+    L, H] and G2 (W, 3, 2, 8); where they live picks the route. CUDA
+    tensors: K10 folds them and applies the r/s algebra on their card (span
+    fold), with `fixed` the key's points staged there (stage_fixed, staged
+    here when not given), and three points come back and are decoded (span
+    readback). CPU tensors: read back (span readback), then the host
+    decodes the sums, Horner-folds them and applies the r/s algebra (span
+    fold). Numpy arrays, which the caller read back under its own spans:
+    the host route, with no span."""
+    if not isinstance(g1_sums, torch.Tensor):
+        return _assemble_host(pk, r, s, g1_sums, g2_sums, window_bits)
+    dev = g1_sums.device
+    if g1_sums.is_cuda:
+        fixed = stage_fixed(pk, dev) if fixed is None else fixed
+        with trace.span("fold", dev):
+            words = ck.proof_fold(g1_sums, g2_sums, *fixed, r, s, window_bits)
+        with trace.span("readback", dev):
+            a, b, c = ck.proof_points(words.cpu())
+            return Proof(a=cv.decode_g1_proj(a)[0], b=cv.decode_g2_proj(b)[0],
+                         c=cv.decode_g1_proj(c)[0])
+    with trace.span("readback", dev):
+        g1_sums, g2_sums = g1_sums.numpy(), g2_sums.numpy()
+    with trace.span("fold", dev):
+        return _assemble_host(pk, r, s, g1_sums, g2_sums, window_bits)
+
+
+def assemble_resident(dpk: DeviceProvingKey, r: int, s: int, g1_sums: torch.Tensor,
+                      g2_sums: torch.Tensor, window_bits: int) -> Proof:
+    """prove.assemble of the window sums prove_core left on the key's
+    device (assemble_proof, with the key's staged points)."""
+    with trace.span("prove.assemble", dpk.device):
+        return assemble_proof(dpk.pk, r, s, g1_sums, g2_sums, window_bits,
+                              (dpk.fixed_g1, dpk.fixed_g2))
 
 
 def encode_assignment(full_assignment) -> np.ndarray:
@@ -269,7 +325,8 @@ def prove_prepared(dpk: DeviceProvingKey, r: int, s: int, full_assignment: Seque
                    stage_times: Optional[dict] = None) -> Proof:
     """Prove with a staged key. Its stages go to the active trace
     collectors (prove.encode, prove.witness_map, prove.msm with sorts,
-    msm_g1 and msm_g2 nested, prove.assemble with readback and fold).
+    msm_g1 and msm_g2 nested, prove.assemble with readback and fold: fold
+    then readback on a card).
     stage_times, when a dict, receives the wall seconds of each stage
     (encode, witness_map, sorts, msm_g1, msm_g2, readback, assemble), each
     ended by a device sync."""
@@ -280,11 +337,7 @@ def prove_prepared(dpk: DeviceProvingKey, r: int, s: int, full_assignment: Seque
         with trace.span("prove.encode", dev):
             asg = _to_device(encode_assignment(full_assignment), dev)
         g1, g2, _ = prove_core(dpk, asg, window_bits)
-        with trace.span("prove.assemble", dev):
-            with trace.span("readback", dev):
-                g1, g2 = g1.cpu().numpy(), g2.cpu().numpy()
-            with trace.span("fold", dev):
-                return assemble_proof(dpk.pk, r, s, g1, g2, window_bits)
+        return assemble_resident(dpk, r, s, g1, g2, window_bits)
 
 
 def prove(pk: ProvingKey, r: int, s: int, matrices, num_inputs: int, num_constraints: int,

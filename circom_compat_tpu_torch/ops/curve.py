@@ -5,13 +5,14 @@ words: G1 (..., 3, 8), G2 (..., 3, 2, 8) with Fq2 coefficients (c0, c1).
 The identity is (0, 1, 0). Affine query points come in the zkey's form,
 G1 (..., 2, 8) and G2 (..., 2, 2, 8), with all-zero rows for infinity.
 
-proj_add / proj_madd are the complete Renes-Costello-Batina formulas
-(algorithms 7 and 8 for a = 0): 12M + 2 mul_b3 and 11M + 2 mul_b3, with
-no case split, valid for doubling, the identity and P + (-P). mul_b3 is
-x -> 3b x: 9x by an add chain on G1, and the constant 3b' = 9/(9+u) on the
-G2 twist. They run on 16-bit limbs in int64 (ops/field.py) with lazy
-reduction and are the plain versions of csrc/curve_kernels.cu, which
-performs the same operations in the same order.
+proj_add / proj_madd / proj_double are the complete Renes-Costello-Batina
+formulas (algorithms 7, 8 and 9 for a = 0): 12M + 2 mul_b3, 11M + 2 mul_b3
+and 6M + 2S + mul_b3, with no case split, valid for doubling, the identity
+and P + (-P). mul_b3 is x -> 3b x: 9x by an add chain on G1, and the
+constant 3b' = 9/(9+u) on the G2 twist. They run on 16-bit limbs in int64
+(ops/field.py) with lazy reduction and are the plain versions of
+csrc/curve_kernels.cu, which performs the same operations in the same
+order.
 """
 
 from __future__ import annotations
@@ -127,6 +128,27 @@ def proj_add(F, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     Y3 = F.add(F.mul(t1, Z3), F.mul(Y3, t0))
     Z3 = F.add(F.mul(Z3, t4), F.mul(t0, t3))
     return _join(F, X3, Y3, Z3)
+
+
+def proj_double(F, p: torch.Tensor) -> torch.Tensor:
+    """2P on limb points (RCB algorithm 9, a = 0): 6M + 2S + mul_b3, complete
+    like proj_add."""
+    X, Y, Z = _xyz(p, F)
+    t0 = F.mul(Y, Y)
+    Z3 = F.add(t0, t0)
+    Z3 = F.add(Z3, Z3)
+    Z3 = F.add(Z3, Z3)
+    t1 = F.mul(Y, Z)
+    t2 = F.mul_b3(F.mul(Z, Z))
+    X3 = F.mul(t2, Z3)
+    Y3 = F.add(t0, t2)
+    xy = F.mul(X, Y)
+    Z3 = F.mul(t1, Z3)
+    t2 = F.add(F.add(t2, t2), t2)
+    t0 = F.sub(t0, t2)
+    Y3 = F.add(X3, F.mul(t0, Y3))
+    t1 = F.mul(t0, xy)
+    return _join(F, F.add(t1, t1), Y3, Z3)
 
 
 def proj_madd(F, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,10 @@ digits of MSM m's window w are offset by (m * W + w) * 2^window_bits, which
 keeps the concatenated keys sorted. The suffix scans of all windows are
 likewise one segmented scan, and their sums one reduce keyed by window.
 Batching keeps the plain versions' Python op count independent of W and M,
-and gives each kernel launch the work of all windows. The final Horner fold
-over the W window sums is tiny and runs on the host on exact ints, where
-the projective-to-affine inversion happens anyway.
+and gives each kernel launch the work of all windows. The prove folds the
+W window sums on the card (K10, ops/curve_kernels.proof_fold); the
+standalone MSMs and the streamed and sharded provers read them back and
+fold them on the host on exact ints (fold_windows_host).
 
 msm_g1 / msm_g2 are the standalone MSMs: one vector of points and scalars,
 the window sums on the card unless the caller names another device, the

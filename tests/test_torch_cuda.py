@@ -6,7 +6,9 @@ domain (the flat NTT chain) on the card, the standalone msm_g1 / msm_g2 at
 circuit, the streamed prover's chain254 golden proof at several chunk
 sizes (pinned buffers and the copy stream on the card), the ceremony's
 scalar_mul_const and contribute, the standalone fft / ifft / coset_shift
-and the signed-digit MSM.
+and the signed-digit MSM; K10 (proof_fold) against the host fold and its
+plain version, a 10^4 chain proof against the CPU's and its one launch a
+ProveServer.handle.
 
 They need an NVIDIA GPU and skip without one. On a machine with a card:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider tests/test_torch_cuda.py
@@ -556,7 +558,8 @@ def _card_meshes():
 def test_sharded_prove_chain254_golden_on_card(cuda, dist_ntt):
     """prove_sharded over two shards on the card (and over two cards where
     the machine has them) gives the golden proof, launching K1, K2, K3/K4,
-    K6/K7 and K8."""
+    K6/K7 and K8; its sums come back to the host, which folds them (no
+    K10)."""
     from circom_compat_tpu_torch.circom.zkey import read_zkey
     from circom_compat_tpu_torch.models import groth16_device as gd
     from circom_compat_tpu_torch.parallel import prove_sharded as ps
@@ -573,7 +576,8 @@ def test_sharded_prove_chain254_golden_on_card(cuda, dist_ntt):
                                        chain_circuit(k=254, a=3).full_assignment()))
         for name in ("fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid"):
             assert fk.LAUNCHES[name] > 0, name
-        assert all(v > 0 for v in ck.LAUNCHES.values()), ck.LAUNCHES
+        assert all(v > 0 for k, v in ck.LAUNCHES.items() if k != "proof_fold"), ck.LAUNCHES
+        assert ck.LAUNCHES["proof_fold"] == 0
 
 
 @pytest.mark.cuda
@@ -703,3 +707,102 @@ def test_contribute_on_card(cuda):
     for name in ("l_query", "h_query"):
         assert (getattr(got, name).limbs == getattr(want, name).limbs).all()
     assert got.delta_g1 == want.delta_g1 and not verify_mpc_chain(got)
+
+
+FOLD_RS = [(0, 0), (1, 0), (0, 1), (R_SCALAR - 1, R_SCALAR - 1),
+           (RNG.randrange(R_SCALAR), RNG.randrange(R_SCALAR))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sums", ["random", "edges"])
+@pytest.mark.parametrize("c,W", [(8, 32), (13, 20)], ids=["w8", "w13"])
+def test_proof_fold_vs_host(cuda, c, W, sums):
+    """K10 against assemble_proof's host route, point for point, at the
+    prove's window shapes (10^4 and 2^20), for (r, s) = (0, 0), (1, 0), (0,
+    1), (R - 1, R - 1) and random; "edges": identity windows (the top one of
+    each G1 MSM, all of L) and two equal consecutive windows. The host route
+    is held to the JAX package's assemble_proof on the CPU
+    (test_torch_proof_fold.py)."""
+    from test_torch_proof_fold import FoldCase
+
+    from circom_compat_tpu_torch.models import groth16_device as gd
+
+    fc = FoldCase(W, c, random.Random(W * 100 + c))
+    if sums == "edges":
+        for row in fc.g1_logs:
+            row[W - 1] = 0
+        fc.g1_logs[2] = [0] * W
+        fc.g1_logs[0][4] = fc.g1_logs[0][3]
+        fc.g2_logs[0], fc.g2_logs[6] = 0, fc.g2_logs[5]
+    g1, g2 = fc.sums()
+    fixed = fc.fixed(cuda)
+    ck.reset_launches()
+    for r, s in FOLD_RS:
+        host = gd.assemble_proof(fc.pk, r, s, g1.numpy(), g2.numpy(), c)
+        card = gd.assemble_proof(fc.pk, r, s, g1.to(cuda), g2.to(cuda), c, fixed)
+        assert (card.a, card.b, card.c) == (host.a, host.b, host.c)
+    assert ck.LAUNCHES["proof_fold"] == len(FOLD_RS)
+
+
+@pytest.mark.cuda
+def test_proof_fold_words_vs_plain(cuda):
+    """K10's words equal its plain version's on the same CUDA tensors (2^20's
+    windows, random r and s)."""
+    from test_torch_proof_fold import FoldCase
+
+    fc = FoldCase(20, 13, random.Random(7))
+    g1, g2 = fc.sums(cuda)
+    fixed = fc.fixed(cuda)
+    r, s = RNG.randrange(R_SCALAR), RNG.randrange(R_SCALAR)
+    _same(ck.proof_fold(g1, g2, *fixed, r, s, 13), ck.proof_fold_plain(g1, g2, *fixed, r, s, 13))
+
+
+@pytest.mark.cuda
+def test_chain_1e4_proof_card_vs_cpu(cuda):
+    """A 10^4 chain proof on the card (K10) is byte for byte the CPU's (the
+    host fold) for a fixed (r, s), and verifies."""
+    from circom_compat_tpu_torch.models import generate_parameters_from_matrices
+    from circom_compat_tpu_torch.models import groth16_device as gd
+    from circom_compat_tpu_torch.models.groth16 import Groth16
+    from circom_compat_tpu_torch.utils.chain import chain_circuit
+
+    c = chain_circuit(k=10**4, a=7)
+    ma, mb, mc = c.to_matrices()
+    pk = generate_parameters_from_matrices(ma, mb, mc, c.r1cs.num_inputs, c.r1cs.num_variables,
+                                           alpha=21, beta=22, gamma=23, delta=24, t=0xE3,
+                                           device=cuda)
+    matrices = gd.matrices_from_rows(ma, mb, c.r1cs.num_inputs, len(c.r1cs.constraints), pk.n_vars)
+    r, s = RNG.randrange(R_SCALAR), RNG.randrange(R_SCALAR)
+    proofs = []
+    for dev in (cuda, "cpu"):
+        dpk = gd.DeviceProvingKey.build(pk, matrices, len(c.r1cs.constraints),
+                                        c.r1cs.num_inputs, dev)
+        ck.reset_launches()
+        proofs.append(gd.prove_prepared(dpk, r, s, c.full_assignment()))
+        assert ck.LAUNCHES["proof_fold"] == (1 if dev is cuda else 0)
+    assert proofs[0] == proofs[1]
+    assert Groth16.verify_proof(pk.vk, proofs[0], c.get_public_inputs())
+
+
+@pytest.mark.cuda
+def test_server_handle_launches_k10_once(cuda, tmp_path):
+    """One ProveServer.handle on the card: one K10 launch, and the chain254
+    golden proof for the golden (r, s)."""
+    from circom_compat_tpu_torch.circom.wtns import write_wtns
+    from circom_compat_tpu_torch.server import ProveServer
+    from circom_compat_tpu_torch.utils.chain import chain_circuit
+
+    srv = ProveServer(str(GOLDEN / "chain254.zkey"), device=cuda)
+    srv.warmup()
+    rec = json.loads((GOLDEN / "chain254_proof.json").read_text())
+    wtns = tmp_path / "w.wtns"
+    write_wtns(chain_circuit(k=254, a=3).full_assignment(), wtns)
+    ck.reset_launches()
+    resp = srv.handle({"witness_file": str(wtns), "r": str(rec["r"]), "s": str(rec["s"])})
+    assert resp["ok"], resp
+    assert ck.LAUNCHES["proof_fold"] == 1
+    g, p = rec["proof"], resp["proof"]
+    assert [int(v) for v in p["pi_a"]] == [int(v, 16) for v in g["a"]] + [1]
+    assert [[int(v) for v in c] for c in p["pi_b"]] == \
+        [[int(v, 16) for v in c] for c in g["b"]] + [[1, 0]]
+    assert [int(v) for v in p["pi_c"]] == [int(v, 16) for v in g["c"]] + [1]
