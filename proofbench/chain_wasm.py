@@ -3,7 +3,7 @@ circom_compat_tpu_torch/utils/chain_wasm.py (`chain_wasm`, without
 `instructions_per_square`) and of circom_compat_tpu_torch/witness/fnv.py.
 
 chain_wasm(k) assembles a circom-2-ABI module whose witness is
-reference.chain_witness(k, a): wires [1, out, a, b1..b_{k-1}], b1 = a^2,
+circuits/chain.py `chain_witness(k, a)`: wires [1, out, a, b1..b_{k-1}], b1 = a^2,
 b_{i+1} = b_i^2, out = b_{k-1}^2 mod r. Setting the input signal `a` runs
 the chain. The field multiply is CIOS Montgomery over 8 x 32-bit limbs in
 WASM i64 ops, unrolled. Memory (bytes): [0, 32) the shared RW words,

@@ -18,6 +18,7 @@ this.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 from pathlib import Path
@@ -26,29 +27,31 @@ HERE = Path(__file__).resolve().parent
 sys.path[:0] = [str(HERE), str(HERE.parent)]
 
 import harness  # noqa: E402
-import inputs  # noqa: E402
 import reference  # noqa: E402
 
 
-def control_answers(key, cfg, seed, device, n):
-    ctrl = reference.ChainReference(key, device)
+def control_answers(key, witness, pool, cfg, seed, device, n):
+    ctrl = reference.Reference(key, witness, device)
     scalars, answers = {}, []
     for j in range(n):
-        a, r, s = harness.request_inputs(seed, cfg, j)
-        if a not in scalars:
-            scalars[a] = ctrl.scalars(a, coset=False)
-        answers.append({"a": a, "r": r, "s": s, "error": None,
-                        "proof": ctrl.proof(scalars[a]["dots"], r, s),
-                        "public": scalars[a]["public"]})
+        p, r, s = harness.request_inputs(seed, cfg, j)
+        if p not in scalars:
+            scalars[p] = ctrl.scalars(pool[p], coset=False)
+        answers.append({"pool": p, "r": r, "s": s, "error": None,
+                        "proof": ctrl.proof(scalars[p]["dots"], r, s),
+                        "public": scalars[p]["public"]})
     return answers
 
 
 def run_control(workload, seed, device, bench=None, requests=None):
     bench = bench or harness.load_json(harness.ROOT / "BENCHMARK.json")
     _, cfg, _, _, _ = harness.cell(bench, workload)
-    key = inputs.PooledKey.make(cfg["k"], cfg["domain_size"], harness.request_rng(seed, "key"))
-    answers = control_answers(key, cfg, seed, device, requests or 4 * cfg["witness_pool"])
-    compared, _ = harness.check(key, answers, device)
+    gen = harness.load_generator(cfg["generator"])
+    key, pool = harness.circuit_inputs(gen, cfg, seed)
+    witness = functools.partial(gen.witness, cfg)
+    answers = control_answers(key, witness, pool, cfg, seed, device,
+                              requests or 4 * cfg["witness_pool"])
+    compared, _ = harness.check(key, witness, pool, answers, device)
     return compared
 
 

@@ -1,9 +1,24 @@
 """One run of one cell: set-up, the measured window, the check.
 
-Everything that belongs to one configuration, traffic mix or per-layer
-metric is a file found by its name in BENCHMARK.json:
-  configs/<config>.json   the deployment: circuit size, domain, the MSM
-                          window the work counts use, the pool of inputs;
+Everything that belongs to one configuration, circuit, traffic mix or
+per-layer metric is a file found by its name in BENCHMARK.json:
+  configs/<config>.json   the deployment: its circuit generator and size,
+                          domain, the MSM window the work counts use, the
+                          pool of inputs;
+  circuits/<generator>.py the circuit a configuration names under
+                          "generator", in plain Python, numpy and torch,
+                          importing nothing of the program:
+                            shape(cfg)      num_constraints, n_vars,
+                                            num_inputs (the constant one and
+                                            the public signals, outputs
+                                            first);
+                            matrices(cfg)   A, B and C as COO (rows, cols,
+                                            coeffs) under "a", "b", "c";
+                            pool_input(cfg, rng)  a pool entry's input;
+                            witness(cfg, x) the full assignment, Python ints;
+                            signals(x)      the input JSON of the inputs
+                                            traffic;
+                            wasm(cfg)       its witness module, or None;
   traffic/<traffic>.json  the mix: which driver below and its sizes;
   metrics/<metric>.py     a reader `read(rec)` of one per-layer metric from
                           the traced run's record, None when it finds
@@ -20,6 +35,7 @@ from it only the system under test, its trace stages and launch counters.
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import logging
@@ -37,10 +53,10 @@ import torch
 import devtrace
 import inputs
 import reference
-from chain_wasm import chain_wasm
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+CIRCUITS = HERE / "circuits"
 COLLECT_SHARE = 0.5  # of a traced run's window: the stretch that reads the stages
 
 
@@ -49,12 +65,23 @@ def load_json(path: Path) -> dict:
         return json.load(fh)
 
 
-def load_metric(name: str):
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"proofbench_metric_{name}", path)
+def _load(path: Path, module_name: str):
+    spec = importlib.util.spec_from_file_location(module_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_metric(name: str):
+    return _load(HERE / "metrics" / f"{name}.py", f"proofbench_metric_{name}")
+
+
+def load_generator(name: str):
+    return _load(CIRCUITS / f"{name}.py", f"proofbench_circuit_{name}")
+
+
+class CellError(Exception):
+    """A cell that cannot run as BENCHMARK.json states it."""
 
 
 def cell(bench: dict, workload: str):
@@ -77,12 +104,20 @@ def request_rng(seed: int, *tag) -> random.Random:
 
 
 def request_inputs(seed: int, cfg: dict, j: int, tag: str = "req"):
-    """(a, r, s) of request j of a run: a is the input of pool entry
-    j mod witness_pool; r and s are the request's own."""
+    """(p, r, s) of request j of a run: p is its pool entry, j mod
+    witness_pool; r and s are the request's own."""
     rq = request_rng(seed, tag, j)
     r, s = rq.randrange(reference.R), rq.randrange(reference.R)
-    p = j % cfg["witness_pool"]
-    return request_rng(seed, "pool", p).randrange(1, reference.R), r, s
+    return j % cfg["witness_pool"], r, s
+
+
+def circuit_inputs(gen, cfg: dict, seed: int):
+    """(the pooled key, the pool's inputs) of a configuration and seed."""
+    key = inputs.PooledKey.make(gen.shape(cfg), gen.matrices(cfg), cfg["domain_size"],
+                                request_rng(seed, "key"))
+    pool = [gen.pool_input(cfg, request_rng(seed, "pool", p))
+            for p in range(cfg["witness_pool"])]
+    return key, pool
 
 
 def launches_total() -> int:
@@ -118,15 +153,16 @@ class ServerWtns:
     """Closed loop, one client: ProveServer.handle({"witness_file", "r",
     "s"}) on the next file of a pool of seeded witness files."""
 
-    def __init__(self, cfg, traffic, key, zkey, tmp, seed, device, timings):
-        self.cfg, self.traffic, self.key, self.seed, self.device = cfg, traffic, key, seed, device
+    needs_wasm = False
+
+    def __init__(self, cfg, traffic, gen, pool, wasm, zkey, tmp, seed, device, timings):
+        self.cfg, self.traffic, self.seed, self.device = cfg, traffic, seed, device
         t0 = time.perf_counter()
-        self.pool = []
-        for p in range(cfg["witness_pool"]):
-            a = request_inputs(seed, cfg, p)[0]
+        self.files = []
+        for p, x in enumerate(pool):
             path = os.path.join(tmp, f"w{p}.wtns")
-            inputs.chain_wtns(key.k, a, path)
-            self.pool.append((a, path))
+            inputs.write_wtns(gen.witness(cfg, x), path)
+            self.files.append(path)
         timings["inputs_wtns"] = time.perf_counter() - t0
         from circom_compat_tpu_torch.server import ProveServer
 
@@ -142,9 +178,9 @@ class ServerWtns:
     def _one(self, answers):
         j = self.n
         self.n += 1
-        a, r, s = request_inputs(self.seed, self.cfg, j)
-        path = self.pool[j % len(self.pool)][1]
-        ans = {"a": a, "r": r, "s": s, "proof": None, "public": None, "error": None}
+        p, r, s = request_inputs(self.seed, self.cfg, j)
+        path = self.files[p]
+        ans = {"pool": p, "r": r, "s": s, "proof": None, "public": None, "error": None}
         t0 = time.perf_counter()
         try:
             resp = self.server.handle({"witness_file": path, "r": str(r), "s": str(s)})
@@ -197,19 +233,19 @@ class ServerWtns:
 
 class BatchInputs:
     """One closed-loop client on BatchProver(engine, workers).prove_many,
-    seeded {"a": x} inputs with given r and s. prove_many takes a finite
-    list, so a stretch of the window goes to it in a few calls with no fixed
-    size: the first fills half the stretch at the rate known before it (from
-    the warm-up, or the stretch before), so a rate that was too high costs
-    no more than the stretch again; each next fills the time left at the
-    rate measured in the stretch, until less than half a proof's time is
-    left."""
+    the pool's inputs as the circuit's input signals, with given r and s.
+    prove_many takes a finite list, so a stretch of the window goes to it in
+    a few calls with no fixed size: the first fills half the stretch at the
+    rate known before it (from the warm-up, or the stretch before), so a
+    rate that was too high costs no more than the stretch again; each next
+    fills the time left at the rate measured in the stretch, until less
+    than half a proof's time is left."""
 
-    def __init__(self, cfg, traffic, key, zkey, tmp, seed, device, timings):
-        self.cfg, self.traffic, self.key, self.seed, self.device = cfg, traffic, key, seed, device
-        t0 = time.perf_counter()
-        wasm = chain_wasm(key.k)
-        timings["inputs_wasm"] = time.perf_counter() - t0
+    needs_wasm = True
+
+    def __init__(self, cfg, traffic, gen, pool, wasm, zkey, tmp, seed, device, timings):
+        self.cfg, self.traffic, self.seed, self.device = cfg, traffic, seed, device
+        self.signals = [gen.signals(x) for x in pool]
         from circom_compat_tpu_torch.circom.zkey import read_zkey
         from circom_compat_tpu_torch.models import groth16_device as gd
         from circom_compat_tpu_torch.models.batch import BatchProver
@@ -235,10 +271,10 @@ class BatchInputs:
             self.calls += 1
         reqs = []
         for j in range(first, first + size):
-            a, r, s = request_inputs(self.seed, self.cfg, j, tag)
-            reqs.append({"a": a, "r": r, "s": s, "proof": None, "public": None, "error": None})
+            p, r, s = request_inputs(self.seed, self.cfg, j, tag)
+            reqs.append({"pool": p, "r": r, "s": s, "proof": None, "public": None, "error": None})
         try:
-            results = self.bp.prove_many([{"a": q["a"]} for q in reqs],
+            results = self.bp.prove_many([self.signals[q["pool"]] for q in reqs],
                                          rs=[(q["r"], q["s"]) for q in reqs],
                                          inflight=self.traffic["inflight"])
         except Exception as e:  # noqa: BLE001 - a failed call is counted, not fatal
@@ -310,17 +346,19 @@ STAGES = ("prove.encode", "prove.witness_map", "prove.msm", "sorts", "msm_g1", "
 # ---------------------------------------------------------------------------
 
 
-def check(key, answers, device):
+def check(key, witness, pool, answers, device):
     """Recompute the expected proof of every answer with the plain
-    reference (h once for each input of the pool) and compare. Returns
-    (compared numbers, the reference's scalars by input a)."""
-    ref = reference.ChainReference(key, device)
+    reference (h once for each input of the pool; `witness(x)` the
+    generator's, bound to its configuration) and compare. Returns
+    (compared numbers, the reference's scalars by pool entry)."""
+    ref = reference.Reference(key, witness, device)
     done = [a for a in answers if a["error"] is None]
     scalars, wrong = {}, 0
     for ans in done:
-        if ans["a"] not in scalars:
-            scalars[ans["a"]] = ref.scalars(ans["a"])
-        sc = scalars[ans["a"]]
+        p = ans["pool"]
+        if p not in scalars:
+            scalars[p] = ref.scalars(pool[p])
+        sc = scalars[p]
         exp = ref.proof(sc["dots"], ans["r"], ans["s"])
         if tuple(ans["proof"]) != exp or ans["public"] != sc["public"]:
             wrong += 1
@@ -356,9 +394,19 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device, t_start:
     traffic = dict(traffic, **(traffic_overrides or {}))
     dev = torch.device(device)
     cuda = dev.type == "cuda"
+    gen = load_generator(cfg["generator"])
+    drive = DRIVERS[traffic["driver"]]
     timings = {}
+    wasm = None
+    if drive.needs_wasm:
+        t0 = time.perf_counter()
+        wasm = gen.wasm(cfg)
+        timings["inputs_wasm"] = time.perf_counter() - t0
+        if wasm is None:
+            raise CellError(f"{workload}: traffic {wl['traffic']!r} sends inputs to a witness "
+                            f"module, and circuit {cfg['generator']!r} has none")
     t0 = time.perf_counter()
-    key = inputs.PooledKey.make(cfg["k"], cfg["domain_size"], request_rng(seed, "key"))
+    key, pool = circuit_inputs(gen, cfg, seed)
     timings["inputs_key"] = time.perf_counter() - t0
     if cuda:
         from circom_compat_tpu_torch import _build
@@ -376,7 +424,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device, t_start:
         zkey = os.path.join(tmp, "key.zkey")
         zkey_bytes = key.write_zkey(zkey)
         timings["inputs_zkey_write"] = time.perf_counter() - t0
-        driver = DRIVERS[traffic["driver"]](cfg, traffic, key, zkey, tmp, seed, dev, timings)
+        driver = drive(cfg, traffic, gen, pool, wasm, zkey, tmp, seed, dev, timings)
         sync(dev)
         setup_s = time.perf_counter() - t_start
         if cuda:
@@ -407,7 +455,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device, t_start:
         shutil.rmtree(tmp, ignore_errors=True)
 
     t0 = time.perf_counter()
-    compared, scalars = check(key, answers, dev)
+    compared, scalars = check(key, functools.partial(gen.witness, cfg), pool, answers, dev)
     rec["scalars"] = scalars
     check_s = time.perf_counter() - t0
 

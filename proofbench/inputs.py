@@ -1,19 +1,17 @@
 """The benchmark's inputs, made from the seed: a pooled known-dlog proving
-key for the squaring chain, its `.zkey`, witness files, and request inputs.
+key for a circuit generator's R1CS (circuits/<generator>.py), its `.zkey`,
+and witness files.
 
 Frozen copies, so that a later change to the program cannot move the
 yardstick:
-  - the chain's assignment is reference.chain_witness, the copy of
-    circom_compat_tpu_torch/utils/chain.py `chain_witness`;
-  - `chain_matrices` is that file's `chain_matrices` (row i of A and of B
-    reads wire i + 2 with coefficient one), as plain arrays;
   - `PooledKey` is chip_smoke.py's `point_pools` and `synthetic_key`: POOL
     seeded scalars k_j with k_j G1 and k_j G2; query row i of a section is
     the pool point (i + offset) mod POOL, three rows per section are
     infinity; alpha, beta, gamma, delta seeded;
   - `write_zkey` is circom_compat_tpu_torch/circom/zkey_writer.py
     `write_zkey` (snarkjs layout, Fq in Montgomery form, section-4
-    coefficients as v R^2 with the appended public-input rows), vectorised;
+    coefficients as v R^2 with the appended public-input rows), vectorised
+    over the entries, one conversion for each distinct coefficient;
   - `write_wtns` is circom_compat_tpu_torch/circom/wtns.py `write_wtns`.
 """
 
@@ -26,19 +24,12 @@ from typing import Dict, List
 
 import numpy as np
 
-from reference import G1, G2, Q, R, chain_witness, ints_to_bytes
+from reference import G1, G2, Q, R, distinct, ints_to_bytes
 
 POOL = 509
 OFFSETS = {"a": 0, "b1": 101, "l": 202, "h": 303, "b2": 404}
 INFINITY_ROWS = (5, 77)  # and length - 3
 ZKEY_MAGIC, WTNS_MAGIC = b"zkey", b"wtns"
-
-
-def chain_matrices(k: int) -> dict:
-    """The chain's A and B as COO arrays of plain coefficients."""
-    rows = np.arange(k, dtype=np.int64)
-    return {"num_constraints": k, "a_rows": rows, "a_cols": rows + 2, "a_coeffs": [1] * k,
-            "b_rows": rows.copy(), "b_cols": rows + 2, "b_coeffs": [1] * k}
 
 
 def _mont_q(v: int) -> bytes:
@@ -58,11 +49,15 @@ def g2_bytes(p) -> bytes:
 
 @dataclass
 class PooledKey:
-    """A proving key for the chain of k squares whose every point has a
-    known discrete log."""
+    """A proving key for a circuit whose every point has a known discrete
+    log: the generator's shape and A, B and C as COO (rows, cols, coeffs)
+    under "a", "b" and "c"."""
 
-    k: int
+    num_constraints: int
+    n_vars: int
+    num_inputs: int  # the constant one and the public signals
     domain_size: int
+    matrices: dict
     ks: List[int]
     alpha: int
     beta: int
@@ -71,20 +66,21 @@ class PooledKey:
     g1_pool: list
     g2_pool: list
     pool: int = POOL
-    num_inputs: int = 2  # the constant one and the public output
-    n_public: int = 1
 
     @property
-    def n_vars(self) -> int:
-        return self.k + 2
+    def n_public(self) -> int:
+        return self.num_inputs - 1
 
     @staticmethod
-    def make(k: int, domain_size: int, rng: random.Random) -> "PooledKey":
-        if domain_size < k + 2 or domain_size & (domain_size - 1):
-            raise ValueError(f"domain {domain_size} cannot hold {k} constraints and 2 inputs")
+    def make(shape: dict, matrices: dict, domain_size: int, rng: random.Random) -> "PooledKey":
+        need = shape["num_constraints"] + shape["num_inputs"]
+        if domain_size < need or domain_size & (domain_size - 1):
+            raise ValueError(f"domain {domain_size} cannot hold {shape['num_constraints']} "
+                             f"constraints and {shape['num_inputs']} inputs")
         ks = [rng.randrange(1, R) for _ in range(POOL)]
         alpha, beta, gamma, delta = (rng.randrange(1, R) for _ in range(4))
-        return PooledKey(k, domain_size, ks, alpha, beta, gamma, delta,
+        return PooledKey(shape["num_constraints"], shape["n_vars"], shape["num_inputs"],
+                         domain_size, matrices, ks, alpha, beta, gamma, delta,
                          [G1.affine(G1.mul_gen(x)) for x in ks],
                          [G2.affine(G2.mul_gen(x)) for x in ks])
 
@@ -97,12 +93,9 @@ class PooledKey:
         out = {}
         for name, length in self.section_lengths().items():
             idx = (np.arange(length, dtype=np.int64) + OFFSETS[name]) % POOL
-            idx[[i for i in INFINITY_ROWS + (length - 3,) if i < length]] = POOL
+            idx[[i for i in INFINITY_ROWS + (length - 3,) if 0 <= i < length]] = POOL
             out[name] = idx
         return out
-
-    def matrices(self) -> dict:
-        return chain_matrices(self.k)
 
     def write_zkey(self, path: str) -> int:
         """The key as a snarkjs Groth16 `.zkey`; returns its size in bytes."""
@@ -116,19 +109,19 @@ class PooledKey:
                + g2_bytes(mul2(self.delta)))
         ic = b"".join(g1_bytes(p) for p in self.g1_pool[: self.n_public + 1])
 
-        # section 4: both matrices' rows, then the appended public-input rows
-        k = self.k
+        # section 4: A's entries, B's, then the appended public-input rows
+        (ar, ac, av), (br, bc, bv) = self.matrices["a"], self.matrices["b"]
+        tail = np.arange(self.n_public + 1, dtype=np.int64)
         entry = np.dtype([("m", "<u4"), ("c", "<u4"), ("s", "<u4"), ("v", "u1", (32,))])
-        coeffs = np.zeros(2 * k + self.n_public + 1, entry)
-        one = np.frombuffer(((1 << 512) % R).to_bytes(32, "little"), np.uint8)
-        rows = np.arange(k, dtype=np.uint32)
-        coeffs["m"][k : 2 * k] = 1
-        coeffs["c"][:k], coeffs["c"][k : 2 * k] = rows, rows
-        coeffs["s"][:k], coeffs["s"][k : 2 * k] = rows + 2, rows + 2
-        tail = np.arange(self.n_public + 1, dtype=np.uint32)
-        coeffs["c"][2 * k :] = k + tail
-        coeffs["s"][2 * k :] = tail
-        coeffs["v"][:] = one
+        coeffs = np.zeros(len(ar) + len(br) + len(tail), entry)
+        coeffs["m"][len(ar) : len(ar) + len(br)] = 1
+        coeffs["c"] = np.concatenate((ar, br, self.num_constraints + tail))
+        coeffs["s"] = np.concatenate((ac, bc, tail))
+        values, codes = distinct(np.concatenate((np.asarray(av), np.asarray(bv),
+                                                 np.ones(len(tail), np.int64))))
+        mont = np.frombuffer(b"".join(((v << 512) % R).to_bytes(32, "little") for v in values),
+                             np.uint8).reshape(-1, 32)
+        coeffs["v"] = mont[codes]
         sec4 = struct.pack("<I", len(coeffs)) + coeffs.tobytes()
 
         pools = {False: np.frombuffer(b"".join(g1_bytes(p) for p in self.g1_pool) + bytes(64),
@@ -157,7 +150,3 @@ def write_wtns(values: List[int], path: str) -> None:
         fh.write(WTNS_MAGIC + struct.pack("<II", 2, 2))
         fh.write(struct.pack("<IQ", 1, len(header)) + header)
         fh.write(struct.pack("<IQ", 2, len(body)) + body)
-
-
-def chain_wtns(k: int, a: int, path: str) -> None:
-    write_wtns(chain_witness(k, a), path)

@@ -7,7 +7,8 @@ the A, B1, L and H scalars in G1 and of the B2 scalars in G2, plus each
 window's bucket reduce (2 (b - 1) additions over b buckets, running sums);
 the points (64 B in G1, 128 B in G2) and the scalars (the assignment and
 h, 32 B) read once. The digits are counted on the scalars the reference
-recomputed for each profiled request.
+recomputed for each profiled request's pool entry; L's scalars are the
+assignment past its num_inputs public wires.
 
 Multiplies of an addition: the complete formulas for a = 0 (Renes,
 Costello, Batina, "Complete addition formulas for prime order elliptic
@@ -69,10 +70,11 @@ def read(rec):
     c = rec["config"]["window_bits"]
     total = 0.0
     for ans in rec["profiled"]:
-        sc = rec["scalars"].get(ans["a"])
+        sc = rec["scalars"].get(ans["pool"])
         if sc is None:
             return None
-        vec = {"a": sc["z"], "b1": sc["z"], "b2": sc["z"], "l": sc["z"][:, 2:], "h": sc["h"]}
+        z, ni = sc["z"], sc["num_inputs"]
+        vec = {"a": z, "b1": z, "b2": z, "l": z[:, ni:], "h": sc["h"]}
         digits = {s: nonzero_digits(v, c) for s, v in vec.items()}
         sizes = {s: v.shape[1] for s, v in vec.items()}
         total += bound_s(digits, sizes, c, rec["peaks"])

@@ -1,10 +1,11 @@
-"""The plain reference of a Groth16 proof on the squaring chain.
+"""The plain reference of a Groth16 proof on a circuit generator's R1CS.
 
 Everything here is plain PyTorch and Python integers; nothing of the
 program under test is imported, and nothing the program made is read. The
 reference recomputes, from the inputs the benchmark made:
 
-  - the chain's witness from its input `a` (`chain_witness`),
+  - the witness z from a pool input, by the generator's own `witness`
+    (circuits/<generator>.py),
   - h, the CircomReduction witness map of arkworks and snarkjs: A and B
     evaluated on the domain with the public inputs in A's tail, C = A o B,
     each interpolated (iFFT), shifted onto the coset of the 2n-th root of
@@ -12,7 +13,7 @@ reference recomputes, from the inputs the benchmark made:
   - the proof of the pooled known-dlog key (inputs.PooledKey): every key
     point is a known multiple of a generator, so
     A = (alpha + <z, kA> + r delta) G1, B = (beta + <z, kB2> + s delta) G2,
-    C = (<z[2:], kL> + <h, kH> + s A' + r B1' - r s delta) G1,
+    C = (<z[num_inputs:], kL> + <h, kH> + s A' + r B1' - r s delta) G1,
     with A' and B1' the scalars of A and of B in G1 (the algebra of
     chip_smoke.py `expected_proof`).
 
@@ -24,7 +25,7 @@ int64. The curve arithmetic is Jacobian over Python integers.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,20 +55,23 @@ def root_of_unity(n: int) -> int:
     return pow(root, 1 << (TWO_ADICITY - log_n), R)
 
 
-def chain_witness(k: int, a: int) -> List[int]:
-    """[1, out, a, b1..b_{k-1}]: b1 = a^2, b_{i+1} = b_i^2, out = b_{k-1}^2."""
-    w = [1, 0, a % R] + [0] * (k - 1)
-    v = a % R
-    for i in range(k - 1):
-        v = v * v % R
-        w[3 + i] = v
-    w[1] = v * v % R
-    return w
-
-
 def ints_to_bytes(values: Sequence[int]) -> bytes:
     """Little-endian 32-byte field elements, back to back."""
     return b"".join(int(v).to_bytes(32, "little") for v in values)
+
+
+def distinct(coeffs) -> Tuple[List[int], np.ndarray]:
+    """(the distinct values of `coeffs` mod r, each entry's index among
+    them). `coeffs` is an int64 array, where -1 stands for r - 1, or a
+    sequence of Python ints."""
+    arr = np.asarray(coeffs)
+    if arr.dtype != object:
+        uniq, codes = np.unique(arr.astype(np.int64), return_inverse=True)
+        return [int(v) % R for v in uniq], codes.reshape(-1).astype(np.int64)
+    index: Dict[int, int] = {}
+    codes = np.fromiter((index.setdefault(int(v) % R, len(index)) for v in arr),
+                        np.int64, len(arr))
+    return list(index), codes
 
 
 # ---------------------------------------------------------------------------
@@ -217,21 +221,23 @@ def sparse_eval(f: Fr, rows, cols, coeffs_mont, z_mont, n: int) -> torch.Tensor:
     return out
 
 
-def witness_map(f: Fr, dom: Domain, matrices: dict, z: torch.Tensor,
+def witness_map(f: Fr, dom: Domain, matrices: dict, k: int, z: torch.Tensor,
                 num_inputs: int, coset: bool = True) -> torch.Tensor:
     """h (canonical, (16, n)) of the CircomReduction witness map for the
-    canonical assignment z (16, n_vars). `coset=False` evaluates on the
-    domain itself instead of its coset: the control's broken guarantee."""
+    canonical assignment z (16, n_vars), the k constraints' A and B as COO
+    (rows, cols, coeffs) under matrices["a"] and ["b"]. `coset=False`
+    evaluates on the domain itself instead of its coset: the control's
+    broken guarantee."""
     n = dom.n
     z_mont = f.mul(z, f.from_ints([MONT * MONT % R]))
     dev = f.device
-    k = matrices["num_constraints"]
     ev = []
     for name in ("a", "b"):
-        rows = torch.as_tensor(matrices[name + "_rows"], device=dev)
-        cols = torch.as_tensor(matrices[name + "_cols"], device=dev)
-        coeffs = f.mont_ints(matrices[name + "_coeffs"])
-        ev.append(sparse_eval(f, rows, cols, coeffs, z_mont, n))
+        rows, cols, coeffs = matrices[name]
+        values, codes = distinct(coeffs)
+        coeffs_mont = f.mont_ints(values)[:, torch.as_tensor(codes, device=dev)]
+        ev.append(sparse_eval(f, torch.as_tensor(rows, device=dev),
+                              torch.as_tensor(cols, device=dev), coeffs_mont, z_mont, n))
     a, b = ev
     a[:, k : k + num_inputs] = z_mont[:, :num_inputs]
     c = f.mul(a, b)
@@ -375,31 +381,34 @@ G2 = Curve(_Fq2, G2_GEN)
 # ---------------------------------------------------------------------------
 
 
-class ChainReference:
-    """The expected proofs of one pooled key on the chain of `k` squares."""
+class Reference:
+    """The expected proofs of one pooled key (inputs.PooledKey) on its
+    circuit; `witness(x)` is the circuit generator's witness of a pool
+    input x, bound to its configuration."""
 
-    def __init__(self, key, device):
-        self.key = key
+    def __init__(self, key, witness: Callable[[object], List[int]], device):
+        self.key, self.witness = key, witness
         self.f = Fr(device)
         self.dom = Domain(self.f, key.domain_size)
-        self.matrices = key.matrices()
         dev = self.f.device
         self.classes = {name: torch.as_tensor(idx, device=dev)
                         for name, idx in key.class_index().items()}
 
-    def scalars(self, a: int, coset: bool = True) -> Dict[str, object]:
-        """The assignment z, h, the chain's public output, and the dot
-        products of the key's sections with z and h: what a proof needs
+    def scalars(self, x, coset: bool = True) -> Dict[str, object]:
+        """The assignment z, h, the public signals z[1:num_inputs], and the
+        dot products of the key's sections with z and h: what a proof needs
         besides r and s."""
         key, f = self.key, self.f
-        w = chain_witness(key.k, a)
-        z = f.from_bytes(ints_to_bytes(w))
-        h = witness_map(f, self.dom, self.matrices, z, key.num_inputs, coset)
+        ni = key.num_inputs
+        w = self.witness(x)
+        z = f.from_ints(w)
+        h = witness_map(f, self.dom, key.matrices, key.num_constraints, z, ni, coset)
         dots = {}
-        for name, vec in (("a", z), ("b1", z), ("b2", z), ("l", z[:, 2:]), ("h", h)):
+        for name, vec in (("a", z), ("b1", z), ("b2", z), ("l", z[:, ni:]), ("h", h)):
             sums = f.sum_by_class(vec, self.classes[name], key.pool)
             dots[name] = sum(s * kj for s, kj in zip(sums, key.ks)) % R
-        return {"z": z, "h": h, "dots": dots, "public": [w[1]]}
+        return {"z": z, "h": h, "dots": dots, "public": [v % R for v in w[1:ni]],
+                "num_inputs": ni}
 
     def proof(self, dots: Dict[str, int], r: int, s: int):
         """(A, B, C) affine: A, C in G1 as (x, y), B in G2 as ((x0, x1), (y0, y1))."""
@@ -413,7 +422,7 @@ class ChainReference:
 
 
 def proof_tuple(proof_json: dict) -> Tuple:
-    """A snarkjs proof JSON -> (A, B, C) affine ints, as ChainReference.proof."""
+    """A snarkjs proof JSON -> (A, B, C) affine ints, as Reference.proof."""
     def g1(v):
         x, y, z = (int(c) for c in v)
         return None if z == 0 else (x, y)

@@ -6,7 +6,8 @@
 From the root of a checkout. Prints the compared numbers beside their
 limits as the last lines on standard error and one JSON object as the last
 line on standard output. Exits non-zero, with no result, without as many
-CUDA devices as the cell asks for, without the program, or if the process
+CUDA devices as the cell asks for, without the program, on a cell that
+sends inputs to a circuit with no witness module, or if the process
 loaded JAX or the JAX package.
 """
 
@@ -53,8 +54,12 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {wl['chips']} CUDA device(s); this machine has "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 3
-    result = harness.run(args.workload, args.seed, args.seconds, bool(args.trace), "cuda:0",
-                         T_START, bench)
+    try:
+        result = harness.run(args.workload, args.seed, args.seconds, bool(args.trace), "cuda:0",
+                             T_START, bench)
+    except harness.CellError as e:
+        print(f"{e}: no result", file=sys.stderr)
+        return 5
     found = forbidden_modules()
     if found:
         print(f"the run loaded {', '.join(found)}: no result", file=sys.stderr)

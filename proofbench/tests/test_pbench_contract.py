@@ -76,11 +76,27 @@ def test_cell_files_resolve_by_name(workload):
 
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_files(config):
+    import harness
+
     path = ROOT / config["file"]
     assert path.is_relative_to(BENCH_DIR)
     cfg = json.loads(path.read_text())
     assert cfg["reduced"] == config["reduced"] == []
-    assert cfg["domain_size"] >= cfg["k"] + 2  # the chain's k + 2 variables fit the domain
+    gen = harness.load_generator(cfg["generator"])
+    shape = gen.shape(cfg)
+    # snarkjs: the domain holds the constraints, the constant's row and one row a public signal
+    assert cfg["domain_size"] >= shape["num_constraints"] + shape["num_inputs"]
+    assert shape["n_vars"] >= shape["num_inputs"] >= 1
+
+
+@pytest.mark.parametrize("workload", BENCH["workloads"], ids=lambda w: w["name"])
+def test_inputs_cells_have_a_witness_module(workload):
+    """A cell whose traffic sends inputs runs a circuit with a witness module."""
+    import harness
+
+    _, cfg, traffic, _, _ = harness.cell(BENCH, workload["name"])
+    if harness.DRIVERS[traffic["driver"]].needs_wasm:
+        assert harness.load_generator(cfg["generator"]).wasm(cfg)[:4] == b"\0asm"
 
 
 def _imports(path: Path):
@@ -101,11 +117,18 @@ def test_no_jax_or_jax_package(path):
     assert not tops & {"jax", "jaxlib", "flax", "circom_compat_tpu"}, tops
 
 
-@pytest.mark.parametrize("name", ["reference.py", "inputs.py", "chain_wasm.py"])
+YARDSTICK = ["reference.py", "inputs.py", "chain_wasm.py"] + sorted(
+    str(p.relative_to(BENCH_DIR)) for p in (BENCH_DIR / "circuits").glob("*.py"))
+
+
+@pytest.mark.parametrize("name", YARDSTICK)
 def test_reference_imports_nothing_of_the_program(name):
     tops = {m.split(".")[0] for m in _imports(BENCH_DIR / name)}
     assert "circom_compat_tpu_torch" not in tops
-    code = (f"import sys; sys.path.insert(0, {str(BENCH_DIR)!r}); import {name[:-3]}; "
+    code = (f"import sys, importlib.util; sys.path.insert(0, {str(BENCH_DIR)!r}); "
+            f"spec = importlib.util.spec_from_file_location('m', {str(BENCH_DIR / name)!r}); "
+            "sys.modules['m'] = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(sys.modules['m']); "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'circom_compat_tpu_torch', 'circom_compat_tpu', 'jax'}))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd="/")

@@ -4,6 +4,7 @@ the CPU; the control and the faults that the comparison must catch."""
 import json
 import random
 import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -58,14 +59,15 @@ def test_reference_proof_equals_the_program_on_cpu(tmp_path):
     from circom_compat_tpu_torch.server import ProveServer
 
     rng = random.Random(2**31 + 99)
-    key = inputs.PooledKey.make(30, 32, rng)
+    chain, cfg = harness.load_generator("chain"), {"k": 30}
+    key = inputs.PooledKey.make(chain.shape(cfg), chain.matrices(cfg), 32, rng)
     key.write_zkey(str(tmp_path / "k.zkey"))
     a, r, s = (rng.randrange(1, R) for _ in range(3))
-    inputs.chain_wtns(30, a, str(tmp_path / "w.wtns"))
+    inputs.write_wtns(chain.witness(cfg, a), str(tmp_path / "w.wtns"))
     server = ProveServer(str(tmp_path / "k.zkey"), device="cpu")
     server.window_bits = 4
     resp = server.handle({"witness_file": str(tmp_path / "w.wtns"), "r": str(r), "s": str(s)})
-    cr = ref.ChainReference(key, "cpu")
+    cr = ref.Reference(key, lambda x: chain.witness(cfg, x), "cpu")
     sc = cr.scalars(a)
     assert ref.proof_tuple(resp["proof"]) == cr.proof(sc["dots"], r, s)
     assert [int(v) for v in resp["public"]] == sc["public"]
@@ -76,25 +78,76 @@ def test_reference_proof_equals_the_program_on_cpu(tmp_path):
 TINY = {"chain_2e20": {"k": 30, "domain_size": 32, "witness_pool": 2},
         "chain_1e4": {"k": 62, "domain_size": 64, "witness_pool": 2}}
 CPU_TRAFFIC = {"profile_seconds": 0.0, "profile_min_requests": 1}
+TEST_CIRCUITS = Path(__file__).resolve().parent / "circuits"
+# Not in BENCHMARK.json: circomlib's Num2Bits(16), 16 public outputs, two-term
+# B rows with r - 1 and one row that lives in C alone.
+NUM2BITS = {"name": "num2bits_16", "generator": "num2bits", "bits": 16, "domain_size": 64,
+            "window_bits": 4, "witness_pool": 2}
+GENERATORS = [("chain", TINY["chain_2e20"]), ("chain", TINY["chain_1e4"]),
+              ("num2bits", NUM2BITS)]
 
 
 @pytest.fixture
 def tiny_bench(tmp_path, monkeypatch):
     """BENCHMARK.json with its configurations at a CPU size, and the
-    program's MSM window at 4 bits, the cheapest for its plain CPU path."""
+    program's MSM window at 4 bits, the cheapest for its plain CPU path;
+    beside them the test-only Num2Bits(16) in cells `num2bits_16.wtns` and
+    `num2bits_16.inputs`, its generator found beside the chain's."""
     from circom_compat_tpu_torch.models import groth16_device as gd
 
     monkeypatch.setattr(gd, "default_window_bits", lambda dpk: 4)
+    circuits = tmp_path / "circuits"
+    circuits.mkdir()
+    for src in (harness.CIRCUITS / "chain.py", TEST_CIRCUITS / "num2bits.py"):
+        (circuits / src.name).symlink_to(src)
+    monkeypatch.setattr(harness, "CIRCUITS", circuits)
     bench = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
     for c in bench["configs"]:
         cfg = dict(harness.load_json(harness.ROOT / c["file"]), **TINY[c["name"]])
         path = tmp_path / f"{c['name']}.json"
         path.write_text(json.dumps(cfg))
         c["file"] = str(path)
+    path = tmp_path / "num2bits_16.json"
+    path.write_text(json.dumps(NUM2BITS))
+    bench["configs"].append({"name": "num2bits_16", "file": str(path), "reduced": []})
+    for traffic in ("wtns", "inputs"):
+        bench["workloads"].append({"name": f"num2bits_16.{traffic}", "config": "num2bits_16",
+                                   "traffic": traffic, "chips": 1})
     return bench
 
 
-@pytest.mark.parametrize("workload", ["chain_2e20.wtns", "chain_2e20.inputs"])
+def _tiny_generator(name):
+    return harness._load(TEST_CIRCUITS / "num2bits.py" if name == "num2bits"
+                         else harness.CIRCUITS / f"{name}.py", f"test_circuit_{name}")
+
+
+def _rows_satisfied(matrices, z, num_constraints):
+    """For each row, whether (A z)(B z) = C z, in Python integers."""
+    ev = {}
+    for m, (rows, cols, coeffs) in matrices.items():
+        acc = [0] * num_constraints
+        for i, j, v in zip(rows.tolist(), cols.tolist(), coeffs):
+            acc[i] = (acc[i] + int(v) * z[j]) % R
+        ev[m] = acc
+    return [a * b % R == c for a, b, c in zip(ev["a"], ev["b"], ev["c"])]
+
+
+@pytest.mark.parametrize("name, cfg", GENERATORS, ids=["chain_30", "chain_62", "num2bits_16"])
+def test_generators_satisfy_their_r1cs(name, cfg):
+    """A z o B z = C z row by row for a pool witness; the same witness
+    with its last wire moved breaks a row."""
+    gen = _tiny_generator(name)
+    shp = gen.shape(cfg)
+    x = gen.pool_input(cfg, harness.request_rng(2**31 + 23, "pool", 0))
+    z = gen.witness(cfg, x)
+    assert len(z) == shp["n_vars"] and z[0] == 1
+    assert cfg["domain_size"] >= shp["num_constraints"] + shp["num_inputs"]
+    mats = gen.matrices(cfg)
+    assert all(_rows_satisfied(mats, z, shp["num_constraints"]))
+    assert not all(_rows_satisfied(mats, z[:-1] + [(z[-1] + 1) % R], shp["num_constraints"]))
+
+
+@pytest.mark.parametrize("workload", ["chain_2e20.wtns", "chain_2e20.inputs", "num2bits_16.wtns"])
 def test_control_fails_the_comparison(tiny_bench, workload):
     for seed in (1, 2, 2**31 + 3):
         compared = control.run_control(workload, seed, "cpu", tiny_bench)
@@ -134,16 +187,40 @@ def _drop_half_the_batch(monkeypatch):
     ("chain_2e20.wtns", _alter_answer, False),
     ("chain_2e20.inputs", _alter_answer, False),
     ("chain_2e20.inputs", _drop_half_the_batch, False),
+    ("num2bits_16.wtns", None, True),
+    ("num2bits_16.wtns", _alter_answer, False),
 ])
 def test_a_run_catches_the_faults(tiny_bench, monkeypatch, workload, fault, correct):
     """The whole run on the CPU (the look for a card skipped), with the
-    timed path broken underneath."""
+    timed path broken underneath; every answer's public signals compared
+    (Num2Bits: its 16 outputs)."""
     if fault:
         fault(monkeypatch)
+    checked = []
+    check = harness.check
+
+    def spy(key, witness, pool, answers, device):
+        checked.extend(a for a in answers if a["error"] is None)
+        return check(key, witness, pool, answers, device)
+
+    monkeypatch.setattr(harness, "check", spy)
     res = harness.run(workload, 2**31 + 17, 0.5, False, "cpu", time.perf_counter(),
                       tiny_bench, traffic_overrides=CPU_TRAFFIC)
     assert res["correct"] is correct, res["compared"]
     assert list(res)[-1] == "compared"
+    n_public = 16 if workload.startswith("num2bits") else 1
+    assert all(len(a["public"]) == n_public for a in checked)
+    assert checked or not correct
+
+
+def test_inputs_without_a_witness_module_stop_before_setup(tiny_bench, monkeypatch):
+    """Inputs traffic on a circuit with no witness module: no key is made."""
+    def no_key(*args):
+        raise AssertionError("set-up began")
+
+    monkeypatch.setattr(inputs.PooledKey, "make", no_key)
+    with pytest.raises(harness.CellError, match="num2bits"):
+        harness.run("num2bits_16.inputs", 5, 0.5, False, "cpu", time.perf_counter(), tiny_bench)
 
 
 class _TimedProver:
@@ -166,6 +243,7 @@ def test_inputs_window_has_no_batch_size(warm_rate):
     proof of its length."""
     drv = object.__new__(harness.BatchInputs)
     drv.cfg, drv.traffic, drv.seed = {"witness_pool": 4}, {"inflight": 2}, 5
+    drv.signals = [{"a": x} for x in range(1, 5)]
     drv.bp, drv.n, drv.calls, drv.rate = _TimedProver(0.01), 0, 0, warm_rate
     answers = []
     elapsed = drv.window(0.6, answers)

@@ -59,6 +59,22 @@ def test_nonzero_digits(c, expected):
     assert MSM.nonzero_digits(x, c) == expected
 
 
+def test_msm_roofline_slices_l_at_num_inputs():
+    """Three public signals: L's scalars are z[4:], not z[2:]."""
+    f = reference.Fr("cpu")
+    n_vars, n, c, device_s = 10, 16, 8, 0.01
+    z = f.from_ints(range(1, n_vars + 1))  # every wire one nonzero 8-bit digit
+    h = f.from_ints(range(1, n + 1))
+    peaks = harness.load_json(harness.HERE / "peaks.json")
+    rec = {"profile": {"stage_device_s": {"prove.msm": device_s}}, "profiled": [{"pool": 0}],
+           "config": {"domain_size": n, "window_bits": c}, "peaks": peaks,
+           "scalars": {0: {"z": z, "h": h, "num_inputs": 4}}}
+    sizes = {"a": n_vars, "b1": n_vars, "b2": n_vars, "l": n_vars - 4, "h": n}
+    bound = MSM.bound_s(dict(sizes), sizes, c, peaks)
+    assert MSM.read(rec) == pytest.approx(100 * bound / device_s)
+    assert MSM.bound_s(dict(sizes, l=n_vars - 2), dict(sizes, l=n_vars - 2), c, peaks) != bound
+
+
 def test_rooflines_silent_without_device_time():
     rec = {"profile": {"stage_device_s": {}, "busy_s": 0.0, "window_s": 1.0}, "profiled": [],
            "config": {"domain_size": 16, "window_bits": 8}, "scalars": {}, "peaks": {}}
