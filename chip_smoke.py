@@ -1824,6 +1824,7 @@ def main() -> int:
         fk.reset_launches()
         ck.reset_launches()
         fbn.reset_launches()
+        msm.reset_counters()
 
     def counts():
         return {**fk.LAUNCHES, **ck.LAUNCHES, **fbn.LAUNCHES}
@@ -1899,7 +1900,8 @@ def main() -> int:
     with trace.collect() as tr4:
         gd.prove_prepared(dpk, r_, s_, asg, wbits)
     names4 = [name for name, _ in tr4.stages]
-    if names4 != ["prove.encode", "prove.witness_map", "prove.msm/sorts", "prove.msm/msm_g1",
+    if names4 != ["prove.encode", "prove.witness_map/witness_map.sparse", "prove.witness_map",
+                  "prove.msm/sorts", "prove.msm/msm_g1",
                   "prove.msm/msm_g2", "prove.msm", "prove.assemble/fold",
                   "prove.assemble/readback", "prove.assemble"]:
         raise AssertionError(f"the prove's trace stages are {names4}")

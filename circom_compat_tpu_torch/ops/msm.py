@@ -43,6 +43,17 @@ from . import field_kernels as fk
 from . import segments
 
 SCALAR_BITS = 254  # BN254 Fr
+# Host-side counters of bucket_sums, by group ("g1", "g2"): the rows it
+# gathers into its level-0 reduce (sum over its MSMs of W * N_m) and its
+# calls. Counted from shapes alone; reset_counters() clears them.
+BUCKET_ROWS = {"g1": 0, "g2": 0}
+BUCKET_CALLS = {"g1": 0, "g2": 0}
+
+
+def reset_counters() -> None:
+    for counts in (BUCKET_ROWS, BUCKET_CALLS):
+        for k in counts:
+            counts[k] = 0
 
 
 def num_windows(window_bits: int) -> int:
@@ -148,6 +159,9 @@ def bucket_sums(xys: Sequence[torch.Tensor], sorts: Sequence[tuple], window_bits
     B = bucket_count(window_bits, signed)
     M = len(xys)
     sizes = [s[0].numel() for s in sorts]
+    group = "g2" if g2 else "g1"
+    BUCKET_ROWS[group] += sum(sizes)
+    BUCKET_CALLS[group] += 1
     dev = xys[0].device
     pts = torch.empty((sum(sizes),) + (3,) + xys[0].shape[2:], dtype=torch.int32, device=dev)
     gkeys = torch.empty(sum(sizes), dtype=torch.int64, device=dev)

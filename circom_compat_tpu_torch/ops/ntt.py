@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..constants import R_SCALAR, fr_root_of_unity
+from ..utils import trace
 from . import field_kernels as fk
 from . import segments
 
@@ -213,9 +214,11 @@ def witness_map(plan: NTTPlan, a_rows, a_cols, a_vals, b_rows, b_cols, b_vals,
                 assignment_mont, num_constraints: int, num_inputs: int, ops=fk.KERNELS):
     """HZ evaluations (Montgomery, lazy) of the CircomReduction witness map.
     `ops` is the kernel set (field_kernels.KERNELS, or PLAIN to run the
-    plain versions on the same device)."""
-    a = sparse_eval(a_rows, a_cols, a_vals, assignment_mont, plan.n, ops)
-    b = sparse_eval(b_rows, b_cols, b_vals, assignment_mont, plan.n, ops)
+    plain versions on the same device). The two sparse row sums run in the
+    span witness_map.sparse."""
+    with trace.span("witness_map.sparse", assignment_mont.device):
+        a = sparse_eval(a_rows, a_cols, a_vals, assignment_mont, plan.n, ops)
+        b = sparse_eval(b_rows, b_cols, b_vals, assignment_mont, plan.n, ops)
     a[num_constraints : num_constraints + num_inputs] = assignment_mont[:num_inputs]
     return witness_map_from_ab(plan, a, b, ops)
 

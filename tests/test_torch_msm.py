@@ -116,6 +116,29 @@ def test_g2_msm_vs_host():
     assert tmsm.fold_windows_host(cv.decode_g2_proj(sums), grp, 5) == want
 
 
+def test_bucket_sums_counts_rows_and_calls():
+    """bucket_sums adds sum_m W * N_m rows and one call to its group's
+    counters, from shapes alone, and leaves the launch counters as they
+    were; reset_counters clears them."""
+    from circom_compat_tpu_torch.ops import curve_kernels as ck
+    from circom_compat_tpu_torch.ops import field_kernels as fk
+
+    tmsm.reset_counters()
+    launches = {**fk.LAUNCHES, **ck.LAUNCHES}
+    W = tmsm.num_windows(WBITS)
+    for g2, sizes in ((False, (12, 9)), (True, (8,))):
+        xys, sorts = [], []
+        for n in sizes:
+            xys.append(_xy(g2, _points(g2, n)[1]))
+            sorts.append(tmsm.window_orders(torch.from_numpy(tl.ints_to_words(_scalars(n))), WBITS))
+        tmsm.bucket_sums(xys, sorts, WBITS)
+    assert tmsm.BUCKET_ROWS == {"g1": W * 21, "g2": W * 8}
+    assert tmsm.BUCKET_CALLS == {"g1": 1, "g2": 1}
+    assert {**fk.LAUNCHES, **ck.LAUNCHES} == launches
+    tmsm.reset_counters()
+    assert tmsm.BUCKET_ROWS == tmsm.BUCKET_CALLS == {"g1": 0, "g2": 0}
+
+
 @pytest.mark.slow
 def test_g2_window_sums_vs_jax():
     """The XLA build of the G2 window sums takes about two minutes here."""

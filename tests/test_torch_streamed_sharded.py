@@ -46,8 +46,8 @@ def test_chain254_streamed_sharded_two_chunks_is_golden(key):
     assert proof.b == tuple(tuple(int(v, 16) for v in c) for c in want["b"])
     assert proof.c == tuple(int(v, 16) for v in want["c"])
     assert [name for name, _ in tr.stages] == [
-        "prove.encode", "prove.witness_map", "prove.msm_stream/scans",
-        "prove.msm_stream/gather", "prove.msm_stream", "prove.assemble"]
+        "prove.encode", "prove.witness_map/witness_map.sparse", "prove.witness_map",
+        "prove.msm_stream/scans", "prove.msm_stream/gather", "prove.msm_stream", "prove.assemble"]
     assert ss.LAST_CHUNK_MS == {}  # chunk times are the card's only
 
 

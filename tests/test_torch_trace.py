@@ -226,8 +226,8 @@ def test_cli_timings_streamed_prove(tmp_path, capsys):
                  "--backend", "streamed"]) == 0
     err = capsys.readouterr().err
     assert "--- stage timings ---" in err
-    assert _labels(err) == ["zkey.load", "key.stage", "prove.encode", "prove.witness_map",
-                            "prove.msm_stream", "prove.assemble"]
+    assert _labels(err) == ["zkey.load", "key.stage", "prove.encode", "witness_map.sparse",
+                            "prove.witness_map", "prove.msm_stream", "prove.assemble"]
     assert main(["--timings", "verify", ZKEY, public, proof]) == 0
     captured = capsys.readouterr()
     assert captured.out == "OK!\n"

@@ -7,7 +7,12 @@
     prove enters opens exactly one profiler range; the server.* spans and
     the prove's stages share one request id and nest under server.handle;
     the stages keep the paths the benchmark reads ("prove.assemble"); the
-    two .wtns readers (wtns_read_s, server_host_s) return numbers;
+    two .wtns readers (wtns_read_s, server_host_s) return numbers; the
+    span witness_map.sparse nests in prove.witness_map; ops/msm.py's row
+    counters gain W (2 n_vars + aux + domain) rows in one G1 call and W
+    n_vars in one G2 call; and the proof, at the golden fixed (r, s), is
+    tests/golden/chain254_proof.json byte for byte (test_torch_groth16
+    proves the same bytes with no collector);
   - BatchProver.prove_many of two inputs on the c = a * b circuit of
     test_torch_witness.mul_module (a dev-mode key, window_bits=4):
     witness.calculate runs on a worker thread and batch.witness_wait on the
@@ -17,6 +22,7 @@ Tolerance: exact (names, ids, counts).
 """
 
 import collections
+import json
 import pathlib
 import random
 import sys
@@ -43,6 +49,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "proofbench"))
 import devtrace  # noqa: E402
 import harness  # noqa: E402
+import reference  # noqa: E402
 
 # The plain versions run many small tensor ops: one thread per test process
 # keeps parallel test workers from oversubscribing the cores.
@@ -68,16 +75,29 @@ def ring(monkeypatch):
 
 
 def test_server_prove_under_stage_ranges(ring, tmp_path):
+    from circom_compat_tpu_torch.ops import msm
+
+    golden = json.loads((ROOT / "tests" / "golden" / "chain254_proof.json").read_text())
     wtns = tmp_path / "w.wtns"
     write_wtns(chain_circuit(k=254, a=3).full_assignment(), wtns)
     srv = ProveServer(ZKEY, device="cpu")
     srv.window_bits = 4  # the proof does not depend on it; the CPU's cheapest
+    msm.reset_counters()
     with devtrace.stage_ranges(trace):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             with torch.profiler.record_function(devtrace.REQUEST):
                 with trace.collect() as tr:
-                    resp = srv.handle({"witness_file": str(wtns), "r": "5", "s": "7"})
+                    resp = srv.handle({"witness_file": str(wtns), "r": str(golden["r"]),
+                                       "s": str(golden["s"])})
     assert resp["ok"], resp
+    p = golden["proof"]
+    assert reference.proof_tuple(resp["proof"]) == (
+        tuple(int(v, 16) for v in p["a"]), tuple(tuple(int(v, 16) for v in c) for c in p["b"]),
+        tuple(int(v, 16) for v in p["c"]))
+    dpk, W = srv.dpk, msm.num_windows(4)
+    assert msm.BUCKET_ROWS == {"g1": W * (2 * dpk.n_vars + dpk.aux_len + dpk.domain_size),
+                               "g2": W * dpk.n_vars}
+    assert msm.BUCKET_CALLS == {"g1": 1, "g2": 1}
 
     # the events devtrace.read_capture reads (prof.events() folds a range
     # nested in one of the same name into one)
@@ -102,6 +122,10 @@ def test_server_prove_under_stage_ranges(ring, tmp_path):
             assert by_id[top.parent_id].name == "server.prove"
     paths = dict(tr.stages)
     assert {"prove.assemble", "prove.msm", "prove.witness_map", "server.read_wtns"} <= set(paths)
+    sparse = next(sp for sp in tr.spans if sp.name == "witness_map.sparse")
+    assert [sp.path for sp in tr.spans].count(sparse.path) == 1
+    assert sparse.path == "prove.witness_map/witness_map.sparse"
+    assert by_id[sparse.parent_id].name == "prove.witness_map"
 
     read_s = harness.load_metric("wtns_read_s.wtns").read({})
     host_s = harness.load_metric("server_host_s.wtns").read({})
@@ -136,8 +160,8 @@ def test_prove_many_spans_share_request_ids(ring, tmp_path):
     for rid in rids:
         names = {sp.name for sp in tr.spans if sp.request_id == rid}
         assert names == {"witness.calculate", "batch.witness_wait", "prove.encode",
-                         "prove.witness_map", "prove.msm", "sorts", "msm_g1", "msm_g2",
-                         "prove.assemble", "readback", "fold"}
+                         "prove.witness_map", "witness_map.sparse", "prove.msm", "sorts",
+                         "msm_g1", "msm_g2", "prove.assemble", "readback", "fold"}
 
     wait_s = harness.load_metric("witness_wait_s.inputs").read({})
     encode_s = harness.load_metric("encode_s.inputs").read({})
