@@ -232,11 +232,14 @@ def prove_core(dpk: DeviceProvingKey, asg_plain: torch.Tensor, window_bits: int)
             sort_l = msm_ops.window_orders(
                 asg_plain[dpk.num_inputs : dpk.num_inputs + dpk.aux_len], window_bits)
             sort_h = msm_ops.window_orders(h[: len(q["h"])], window_bits)
+            # one read of the digit-0 counts for both groups (B2's sort is A's)
+            zeros = msm_ops.digit_zero_counts([sort_a, sort_a, sort_l, sort_h])
         with trace.span("msm_g1", dev):
             g1 = msm_ops.window_sums([q["a"], q["b1"], q["l"], q["h"]],
-                                     [sort_a, sort_a, sort_l, sort_h], window_bits)
+                                     [sort_a, sort_a, sort_l, sort_h], window_bits, zeros=zeros)
         with trace.span("msm_g2", dev):
-            g2 = msm_ops.window_sums([q["b2"]], [sort_a], window_bits)[0]
+            g2 = msm_ops.window_sums([q["b2"]], [sort_a], window_bits,
+                                     zeros=zeros[:1])[0]
     return g1, g2, h
 
 

@@ -252,9 +252,11 @@ def prove_streamed(spk: StreamedProvingKey, r: int, s: int,
         def compute(lo, g1, g2):
             sa, sl, sh = (msm_ops.window_orders(sc[lo : lo + chunk], window_bits)
                           for sc in scalars)
-            acc[False] = ck.point_add(
-                acc[False], msm_ops.bucket_sums(list(g1), [sa, sa, sl, sh], window_bits))
-            acc[True] = ck.point_add(acc[True], msm_ops.bucket_sums([g2], [sa], window_bits))
+            zeros = msm_ops.digit_zero_counts([sa, sa, sl, sh])  # one read: B2's sort is A's
+            acc[False] = ck.point_add(acc[False], msm_ops.bucket_sums(
+                list(g1), [sa, sa, sl, sh], window_bits, zeros=zeros))
+            acc[True] = ck.point_add(acc[True], msm_ops.bucket_sums(
+                [g2], [sa], window_bits, zeros=zeros[:1]))
 
         chunk_ms = _stream(spk, chunk, n, compute)
         g1_sums = msm_ops.scan_buckets(acc[False]).cpu().numpy()

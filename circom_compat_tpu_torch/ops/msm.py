@@ -8,11 +8,19 @@ windows of all the MSMs over one group go through ONE reduce: the sorted
 digits of MSM m's window w are offset by (m * W + w) * 2^window_bits, which
 keeps the concatenated keys sorted. The suffix scans of all windows are
 likewise one segmented scan, and their sums one reduce keyed by window.
-Batching keeps the plain versions' Python op count independent of W and M,
-and gives each kernel launch the work of all windows. The prove folds the
-W window sums on the card (K10, ops/curve_kernels.proof_fold); the
-standalone MSMs and the streamed and sharded provers read them back and
-fold them on the host on exact ints (fold_windows_host).
+Bucket 0 is multiplied by 0 in every window sum, so the reduce takes only
+the rows whose digit is nonzero: the stable sort puts a window's digit-0
+rows first, each window's count of them is read back (digit_zero_counts:
+one small read a bucket_sums call, or one a prove for both groups), and
+bucket_sums gathers the suffixes that follow and returns the identity in
+bucket 0 of every window, as in any empty bucket. A witness of bits, whose
+digits are 0 in every window but the lowest, gathers at most one row a
+scalar where a dense one gathers about W. Batching keeps the plain
+versions' Python op count independent of W and M, and gives each kernel
+launch the work of all windows. The prove folds the W window sums on the
+card (K10, ops/curve_kernels.proof_fold); the standalone MSMs and the
+streamed and sharded provers read them back and fold them on the host on
+exact ints (fold_windows_host).
 
 msm_g1 / msm_g2 are the standalone MSMs: one vector of points and scalars,
 the window sums on the card unless the caller names another device, the
@@ -44,14 +52,16 @@ from . import segments
 
 SCALAR_BITS = 254  # BN254 Fr
 # Host-side counters of bucket_sums, by group ("g1", "g2"): the rows it
-# gathers into its level-0 reduce (sum over its MSMs of W * N_m) and its
-# calls. Counted from shapes alone; reset_counters() clears them.
+# gathers into its level-0 reduce (those with a nonzero digit), the digit-0
+# rows it leaves out (the two sum to W * N_m over its MSMs) and its calls.
+# Counted from the digit-0 counts it reads back; reset_counters() clears them.
 BUCKET_ROWS = {"g1": 0, "g2": 0}
+BUCKET_SKIPPED = {"g1": 0, "g2": 0}
 BUCKET_CALLS = {"g1": 0, "g2": 0}
 
 
 def reset_counters() -> None:
-    for counts in (BUCKET_ROWS, BUCKET_CALLS):
+    for counts in (BUCKET_ROWS, BUCKET_SKIPPED, BUCKET_CALLS):
         for k in counts:
             counts[k] = 0
 
@@ -146,41 +156,82 @@ def _negate_rows(rows: torch.Tensor, negs: torch.Tensor) -> torch.Tensor:
     return torch.stack((rows.select(1, 0), torch.where(keep, y, neg_y)), dim=1)
 
 
+def digit_zero_counts(sorts: Sequence[tuple]) -> torch.Tensor:
+    """(M, W) int64 on the host: each window's count of digit-0 rows in M
+    sorts (from window_orders or window_orders_signed), read back in one
+    copy that waits for the sorts."""
+    keys = sorts[0][1]
+    one = torch.ones((keys.shape[0], 1), dtype=keys.dtype, device=keys.device)
+    return torch.cat([torch.searchsorted(s[1], one) for s in sorts], 1).cpu().t()
+
+
+def _index_tables(sizes: Sequence[int], zeros: torch.Tensor, B: int) -> torch.Tensor:
+    """(M, 3, W) int64 on the host, for MSM m of N_m = sizes[m] rows a
+    window: where the rows of nonzero digit end, window after window, in
+    the gathered order (ends); what position p of window w adds to read its
+    flat row w * N_m + zeros[m, w] + (p - start of w) in the sorts (shift);
+    and window w's key base (m * W + w) * B."""
+    M, W = zeros.shape
+    n = torch.tensor(sizes, dtype=torch.int64)[:, None]
+    w = torch.arange(W, dtype=torch.int64)
+    ends = torch.cumsum(n - zeros, 1)
+    return torch.stack((ends, (w + 1) * n - ends, (torch.arange(M)[:, None] * W + w) * B), 1)
+
+
 def bucket_sums(xys: Sequence[torch.Tensor], sorts: Sequence[tuple], window_bits: int,
-                signed: bool = False) -> torch.Tensor:
+                signed: bool = False, zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(M, W, B, *point) bucket sums of M MSMs over one group, all in ONE
     segmented reduce: MSM m's window w takes keys (m * W + w) * B + digit,
     B = bucket_count(window_bits, signed). xys[m]: affine points, (N_m, 2,
     8) G1 or (N_m, 2, 2, 8) G2 Montgomery words with zero rows for
     infinity; sorts[m]: its (orders, keys) from window_orders, or with
-    signed=True its (orders, keys, negs) from window_orders_signed."""
+    signed=True its (orders, keys, negs) from window_orders_signed.
+
+    Bucket 0 of every window is the identity: the reduce takes only the
+    rows whose digit is nonzero, as many as digit_zero_counts(sorts) leaves
+    (`zeros`, read here when the caller has not read it with other sorts).
+    Identity rows keyed 0 before them fill the rows to whole tiles, so the
+    reduce pads nothing."""
     g2 = xys[0].dim() == 4
+    if any(len(s) != (3 if signed else 2) for s in sorts):
+        raise ValueError("signed bucket sums take (orders, keys, negs) sorts, unsigned "
+                         "(orders, keys)")
     W = sorts[0][0].shape[0]
     B = bucket_count(window_bits, signed)
     M = len(xys)
-    sizes = [s[0].numel() for s in sorts]
-    group = "g2" if g2 else "g1"
-    BUCKET_ROWS[group] += sum(sizes)
-    BUCKET_CALLS[group] += 1
     dev = xys[0].device
-    pts = torch.empty((sum(sizes),) + (3,) + xys[0].shape[2:], dtype=torch.int32, device=dev)
-    gkeys = torch.empty(sum(sizes), dtype=torch.int64, device=dev)
-    off = 0
-    for m, (xy, sort) in enumerate(zip(xys, sorts)):
-        if len(sort) != (3 if signed else 2):
-            raise ValueError("signed bucket sums take (orders, keys, negs) sorts, unsigned "
-                             "(orders, keys)")
-        orders, keys = sort[0], sort[1]
-        n = sizes[m]
-        rows = xy[orders.reshape(-1)]
-        if signed:
-            rows = _negate_rows(rows, sort[2].reshape(-1))
-        pts[off : off + n] = cv.affine_to_proj(rows, g2)
-        del rows  # W * N_m gathered rows: not held through the reduce below
-        base = (m * W + torch.arange(W, device=dev)) * B
-        gkeys[off : off + n] = (keys + base[:, None]).reshape(-1)
-        off += n
+    sizes = [s[0].shape[1] for s in sorts]
+    host = _index_tables(sizes, digit_zero_counts(sorts) if zeros is None else zeros, B)
+    kept = host[:, 0, -1].tolist()
+    rows_in = sum(kept)
+    group = "g2" if g2 else "g1"
+    BUCKET_ROWS[group] += rows_in
+    BUCKET_SKIPPED[group] += W * sum(sizes) - rows_in
+    BUCKET_CALLS[group] += 1
+    tables = host.to(dev, non_blocking=True)  # no wait: the host copy is staged at once
     ident = cv.proj_identity_const(g2, dev)
+    lead = -rows_in % segments.TILE
+    pts = torch.empty((lead + rows_in,) + ident.shape, dtype=torch.int32, device=dev)
+    gkeys = torch.empty(lead + rows_in, dtype=torch.int64, device=dev)
+    pts[:lead], gkeys[:lead] = ident, 0
+    off = lead
+    for m, (xy, sort, n) in enumerate(zip(xys, sorts, kept)):
+        if n == 0:
+            continue
+        orders, keys = sort[0], sort[1]
+        ends, shift, base = tables[m]
+        # the flat positions src of the rows kept, and the window win of each
+        src = torch.arange(n, device=dev)
+        win = torch.searchsorted(ends, src, right=True)
+        src.add_(shift[win])
+        rows = xy[orders.reshape(-1)[src]]
+        if signed:
+            rows = _negate_rows(rows, sort[2].reshape(-1)[src])
+        pts[off : off + n] = cv.affine_to_proj(rows, g2)
+        del rows  # the gathered rows: not held through the reduce below
+        torch.add(keys.reshape(-1)[src], base[win], out=gkeys[off : off + n])
+        del src, win
+        off += n
     sums = segments.reduce_by_sorted_key(ck.point_add, pts, gkeys, M * W * B, ident,
                                          _leaf_scan, _general_scan)
     return sums.reshape((M, W, B) + sums.shape[1:])
@@ -206,9 +257,10 @@ def scan_buckets(buckets: torch.Tensor) -> torch.Tensor:
     return sums.reshape(lead + sums.shape[1:])
 
 
-def window_sums(xys, sorts, window_bits: int, signed: bool = False) -> torch.Tensor:
+def window_sums(xys, sorts, window_bits: int, signed: bool = False,
+                zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(M, W, *point) Pippenger window sums of M MSMs over one group."""
-    return scan_buckets(bucket_sums(xys, sorts, window_bits, signed))
+    return scan_buckets(bucket_sums(xys, sorts, window_bits, signed, zeros))
 
 
 def fold_windows_host(window_pts: List, curve_ops, window_bits: int):

@@ -130,9 +130,12 @@ def reduce_by_sorted_key(combine: Callable, values: torch.Tensor, sorted_keys: t
                          num_segments: int, identity: torch.Tensor, tile_scan: Callable,
                          tile_scan_general: Callable) -> torch.Tensor:
     """Per-key sums for sorted int keys in [0, num_segments): (num_segments,
-    *elem), the identity where a key has no element. Only each segment's
-    last position is read, so Phase C runs at those positions only."""
+    *elem), the identity where a key has no element (every key, with no
+    elements: no combine runs). Only each segment's last position is read,
+    so Phase C runs at those positions only."""
     n = sorted_keys.shape[0]
+    if n == 0:
+        return _expand(identity, num_segments)
     flags = segment_flags(sorted_keys)
     seg_ids = torch.arange(num_segments, dtype=sorted_keys.dtype, device=sorted_keys.device)
     right = torch.searchsorted(sorted_keys, seg_ids, right=True)

@@ -66,12 +66,15 @@ class ProveServer:
         self.n_proofs = 0
 
     def warmup(self) -> float:
-        """One prove on a zero assignment (the result is discarded): builds
-        the kernels and stages the plan, so that every request after it runs
-        at steady-state latency."""
+        """One prove on an assignment of ones (the result is discarded):
+        builds the kernels, stages the plan and runs every stage of the MSM,
+        so that every request after it runs at steady-state latency. (The
+        MSM gathers only rows of nonzero digit: a zero assignment would
+        leave its bucket reduce unrun.)"""
         t0 = time.perf_counter()
-        zeros = np.zeros((self.dpk.n_vars, 8), np.int32)
-        self._gd.prove_prepared(self.dpk, 0, 0, zeros, self.window_bits)
+        ones = np.zeros((self.dpk.n_vars, 8), np.int32)
+        ones[:, 0] = 1
+        self._gd.prove_prepared(self.dpk, 0, 0, ones, self.window_bits)
         self.compile_s = time.perf_counter() - t0
         return self.compile_s
 

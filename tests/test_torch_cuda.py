@@ -8,7 +8,8 @@ sizes (pinned buffers and the copy stream on the card), the ceremony's
 scalar_mul_const and contribute, the standalone fft / ifft / coset_shift
 and the signed-digit MSM; K10 (proof_fold) against the host fold and its
 plain version, a 10^4 chain proof against the CPU's and its one launch a
-ProveServer.handle.
+ProveServer.handle; bucket_sums' digit-0 skip on bit scalars against
+its plain version.
 
 They need an NVIDIA GPU and skip without one. On a machine with a card:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider tests/test_torch_cuda.py
@@ -604,10 +605,13 @@ def test_streamed_sharded_chain254_golden_on_card(cuda, chunk):
 
 @pytest.mark.cuda
 def test_shard_work_queues_without_a_host_sync(cuda):
-    """The sharded witness map and a shard's sorts and window sums queue
-    their kernels with no call that synchronizes the card
-    (torch.cuda.set_sync_debug_mode("error") raises on one), so the
-    per-shard loops over distinct cards overlap."""
+    """The sharded witness map and a shard's sorts queue their kernels with
+    no call that synchronizes the card (torch.cuda.set_sync_debug_mode
+    ("error") raises on one); each window_sums call synchronizes once, to
+    read back its windows' digit-0 counts (ops/msm.bucket_sums), which waits
+    for that shard's card alone."""
+    import warnings
+
     from circom_compat_tpu_torch.circom.zkey import read_zkey
     from circom_compat_tpu_torch.models import groth16_device as gd
     from circom_compat_tpu_torch.ops import msm
@@ -629,11 +633,42 @@ def test_shard_work_queues_without_a_host_sync(cuda):
         h = prover.h_scalars(asg)
         sa = msm.window_orders(pm.rows_of([asg[0]], 0, 128, here), w)
         sh = msm.window_orders(pm.rows_of(h, 0, 128, here), w)
-        g1 = msm.window_sums(list(prover.g1[0]), [sa, sa, sa, sh], w)
-        g2 = msm.window_sums([prover.g2[0]], [sa], w)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            g1 = msm.window_sums(list(prover.g1[0]), [sa, sa, sa, sh], w)
+            g2 = msm.window_sums([prover.g2[0]], [sa], w)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [c for c in caught if "called a synchronizing CUDA operation" in str(c.message)]
+    assert len(syncs) == 2, [f"{c.filename}:{c.lineno}" for c in syncs]
     assert g1.shape[0] == 4 and g2.shape[0] == 1
+
+
+@pytest.mark.cuda
+def test_bucket_sums_skip_on_bits(cuda):
+    """Window sums over 2^16 rows (N = 2048, w = 8) of bit scalars and two
+    dense ones: the card's equal the plain version's on the CPU, and both
+    gather the same rows, those of nonzero digit."""
+    from circom_compat_tpu_torch.ops import msm
+
+    n, w = 2048, 8
+    _, pts = _points(False, n)
+    vals = [RNG.randrange(2) for _ in range(n)]
+    vals[5], vals[n - 2] = RNG.randrange(R_SCALAR), RNG.randrange(R_SCALAR)
+    xy = torch.from_numpy(cv.encode_g1_affine(pts))
+    words = torch.from_numpy(lc.ints_to_words(vals))
+    rows = int((msm.window_digits(words, w) != 0).sum())
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        msm.reset_counters()
+        got[dev.type] = msm.window_sums([xy.to(dev)], [msm.window_orders(words.to(dev), w)], w)
+        assert msm.BUCKET_ROWS["g1"] == rows
+        assert msm.BUCKET_SKIPPED["g1"] == msm.num_windows(w) * n - rows
+    assert cv.decode_g1_proj(got["cuda"]) == cv.decode_g1_proj(got["cpu"])
 
 
 @pytest.mark.cuda

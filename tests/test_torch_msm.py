@@ -8,10 +8,14 @@ folded MSMs against sum_i s_i P_i on the host. The standalone msm_g1 is
 held against the JAX msm_g1 (XLA) at 48 points, with the operands carried
 across by convert.affine_words_from_limbs, and msm_g2 against the JAX
 package's host G2.msm (its XLA msm_g2 rides the slow tier: a two-minute
-build); both give None for empty input and all-zero scalars. Inputs
-(scalars, points with infinity rows, zero scalars) come from a numpy seed
-and are fed to both packages. Tolerance: exact equality of affine group
-elements.
+build); both give None for empty input and all-zero scalars. bucket_sums gathers
+only rows of nonzero digit: at N = 37 and w = 4, on bit scalars, all-zero
+scalars and one empty window between full ones (G1) and bit scalars
+(G2), bucket 0 is the identity, every other bucket the host's sum and
+the row counters split W * N into gathered and skipped; msm_g1 on a few
+dense scalars and bits equals sum_i s_i P_i. Inputs (scalars, points with
+infinity rows, zero scalars) come from a numpy seed and are fed to both
+packages. Tolerance: exact equality of affine group elements.
 """
 
 import jax
@@ -117,26 +121,32 @@ def test_g2_msm_vs_host():
 
 
 def test_bucket_sums_counts_rows_and_calls():
-    """bucket_sums adds sum_m W * N_m rows and one call to its group's
-    counters, from shapes alone, and leaves the launch counters as they
-    were; reset_counters clears them."""
+    """bucket_sums adds the rows whose digit is nonzero (those it gathers)
+    to BUCKET_ROWS, the digit-0 rows it leaves out to BUCKET_SKIPPED (the
+    two sum to sum_m W * N_m) and one call to its group's counters, and
+    leaves the launch counters as they were; reset_counters clears them."""
     from circom_compat_tpu_torch.ops import curve_kernels as ck
     from circom_compat_tpu_torch.ops import field_kernels as fk
 
     tmsm.reset_counters()
     launches = {**fk.LAUNCHES, **ck.LAUNCHES}
     W = tmsm.num_windows(WBITS)
+    nonzero = {}
     for g2, sizes in ((False, (12, 9)), (True, (8,))):
         xys, sorts = [], []
         for n in sizes:
             xys.append(_xy(g2, _points(g2, n)[1]))
-            sorts.append(tmsm.window_orders(torch.from_numpy(tl.ints_to_words(_scalars(n))), WBITS))
+            words = torch.from_numpy(tl.ints_to_words(_scalars(n)))
+            sorts.append(tmsm.window_orders(words, WBITS))
+            key = "g2" if g2 else "g1"
+            nonzero[key] = nonzero.get(key, 0) + int((tmsm.window_digits(words, WBITS) != 0).sum())
         tmsm.bucket_sums(xys, sorts, WBITS)
-    assert tmsm.BUCKET_ROWS == {"g1": W * 21, "g2": W * 8}
+    assert tmsm.BUCKET_ROWS == nonzero
+    assert tmsm.BUCKET_SKIPPED == {"g1": W * 21 - nonzero["g1"], "g2": W * 8 - nonzero["g2"]}
     assert tmsm.BUCKET_CALLS == {"g1": 1, "g2": 1}
     assert {**fk.LAUNCHES, **ck.LAUNCHES} == launches
     tmsm.reset_counters()
-    assert tmsm.BUCKET_ROWS == tmsm.BUCKET_CALLS == {"g1": 0, "g2": 0}
+    assert tmsm.BUCKET_ROWS == tmsm.BUCKET_SKIPPED == tmsm.BUCKET_CALLS == {"g1": 0, "g2": 0}
 
 
 @pytest.mark.slow
@@ -207,3 +217,67 @@ def test_msm_empty_and_device_rule(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device"):
         tmsm.msm_g1(_xy(False, pts), list(range(8)))
+
+
+
+SKIP_RNG = np.random.default_rng(0xB0)
+SKIP_N, SKIP_W = 37, 4  # N not a multiple of the tile of 16
+
+
+def _dense(n):
+    return [int.from_bytes(SKIP_RNG.bytes(32), "little") % R_SCALAR for _ in range(n)]
+
+
+def _bits(n):
+    return [int(b) for b in SKIP_RNG.integers(0, 2, size=n)]
+
+
+# Scalars whose digits are 0 in most rows, in every row, and in one whole
+# window between windows that hold rows. Few dense scalars: the plain
+# reduce's cost grows with its levels, which grow with the rows kept.
+SKIP_CASES = {
+    "bits": lambda: _bits(SKIP_N),
+    "all_zero": lambda: [0] * SKIP_N,
+    "zero_window": lambda: [v & ~(0xF << (3 * SKIP_W)) for v in _dense(2)] + _bits(SKIP_N - 2),
+}
+
+
+def _host_buckets(grp, pts, vals, c):
+    """{(window, digit): sum of the points} over the nonzero digits, from the ints."""
+    out = {}
+    for p, v in zip(pts, vals):
+        for w in range(tmsm.num_windows(c)):
+            d = (v >> (w * c)) & ((1 << c) - 1)
+            if d:
+                out[w, d] = grp.add(out.get((w, d)), p)
+    return out
+
+
+@pytest.mark.parametrize("g2,case", [(False, c) for c in SKIP_CASES] + [(True, "bits")],
+                         ids=[f"g1-{c}" for c in SKIP_CASES] + ["g2-bits"])
+def test_bucket_sums_skip_digit_zero(g2, case):
+    """bucket_sums gathers the rows of nonzero digit alone: bucket 0 of every
+    window is the identity, every other bucket the host's sum of its points,
+    BUCKET_ROWS counts the nonzero digits and BUCKET_SKIPPED the other rows
+    of the W * N."""
+    grp, pts = _points(g2, SKIP_N)
+    vals = SKIP_CASES[case]()
+    words = torch.from_numpy(tl.ints_to_words(vals))
+    tmsm.reset_counters()
+    got = tmsm.bucket_sums([_xy(g2, pts)], [tmsm.window_orders(words, SKIP_W)], SKIP_W)[0]
+    W, B = tmsm.num_windows(SKIP_W), 1 << SKIP_W
+    want = _host_buckets(grp, pts, vals, SKIP_W)
+    decoded = cv.decode_g2_proj(got) if g2 else cv.decode_g1_proj(got)
+    assert decoded == [want.get((w, j)) for w in range(W) for j in range(B)]
+    rows = sum((v >> (w * SKIP_W)) & (B - 1) != 0 for v in vals for w in range(W))
+    group, other = ("g2", "g1") if g2 else ("g1", "g2")
+    assert tmsm.BUCKET_ROWS == {group: rows, other: 0}
+    assert tmsm.BUCKET_SKIPPED == {group: W * SKIP_N - rows, other: 0}
+
+
+def test_msm_g1_on_dense_and_bits():
+    """The standalone MSM and its window sums through the skip: a few dense
+    scalars, then bits and zeros."""
+    grp, pts = _points(False, SKIP_N)
+    vals = _dense(3) + _bits(SKIP_N - 3)
+    assert tmsm.msm_g1(_xy(False, pts), vals, window_bits=2, device="cpu") == grp.msm(pts, vals)

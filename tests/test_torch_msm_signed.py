@@ -10,7 +10,10 @@ against the JAX package:
   - msm_g1(signed=True) equals the unsigned msm_g1 and sum_i s_i P_i, at
     w = 2 too, where the top window's digit plus carry passes 2^(w-1);
   - signed is off by default, and the bucket sums refuse sorts of the
-    other kind.
+    other kind;
+  - signed bucket sums gather only rows of nonzero digit (bits, and two
+    dense scalars with an empty window): bucket 0 is the identity, bucket
+    j the host's signed sum, the row counters split W * N.
 Inputs come from a numpy seed. Tolerance: exact equality of integer
 digits and of affine group elements.
 """
@@ -107,3 +110,43 @@ def test_signed_msm_past_half_window_and_defaults():
         tmsm.bucket_sums([xy], [tmsm.window_orders(sc, 4)], 4, signed=True)
     with pytest.raises(ValueError, match="signed"):
         tmsm.bucket_sums([xy], [tmsm.window_orders_signed(sc, 4)], 4)
+
+
+def _signed_digits(v, c):
+    """The window digits of v, each below the top one recoded to [-2^(c-1), 2^(c-1))."""
+    out, carry, W = [], 0, tmsm.num_windows(c)
+    for w in range(W):
+        d = ((v >> (w * c)) & ((1 << c) - 1)) + carry
+        carry = int(w < W - 1 and d >= 1 << (c - 1))
+        out.append(d - (carry << c))
+    return out
+
+
+@pytest.mark.parametrize("case", ["bits", "zero_window"])
+def test_signed_bucket_sums_skip_digit_zero(case):
+    """Signed bucket sums gather the rows of nonzero digit alone, at N = 37
+    and w = 4: bucket 0 of every window is the identity, bucket j the host's
+    sum of d / |d| P over the rows with |d| = j, and the counters split the
+    W * N rows into gathered and skipped."""
+    c, n = 4, 37
+    rng = np.random.default_rng(0x5B)
+    vals = [int(b) for b in rng.integers(0, 2, size=n)]
+    if case == "zero_window":  # two dense scalars; windows 2 and 3 cleared leave 3 no carry
+        vals[:2] = [(int.from_bytes(rng.bytes(32), "little") % R_SCALAR) & ~(0xFF << 8)
+                    for _ in range(2)]
+    pts = _points(n)
+    want = {}
+    for p, v in zip(pts, vals):
+        for w, d in enumerate(_signed_digits(v, c)):
+            if d:
+                want[w, abs(d)] = rc.G1.add(want.get((w, abs(d))), rc.G1.neg(p) if d < 0 else p)
+    W, B = tmsm.num_windows(c), tmsm.bucket_count(c, signed=True)
+    assert all(d == 0 for v in vals for d in _signed_digits(v, c)[3:4])
+    sc = torch.from_numpy(tl.ints_to_words(vals))
+    tmsm.reset_counters()
+    got = tmsm.bucket_sums([torch.from_numpy(cv.encode_g1_affine(pts))],
+                           [tmsm.window_orders_signed(sc, c)], c, signed=True)[0]
+    assert cv.decode_g1_proj(got) == [want.get((w, j)) for w in range(W) for j in range(B)]
+    rows = sum(d != 0 for v in vals for d in _signed_digits(v, c))
+    assert tmsm.BUCKET_ROWS == {"g1": rows, "g2": 0}
+    assert tmsm.BUCKET_SKIPPED == {"g1": W * n - rows, "g2": 0}

@@ -9,8 +9,10 @@
     the stages keep the paths the benchmark reads ("prove.assemble"); the
     two .wtns readers (wtns_read_s, server_host_s) return numbers; the
     span witness_map.sparse nests in prove.witness_map; ops/msm.py's row
-    counters gain W (2 n_vars + aux + domain) rows in one G1 call and W
-    n_vars in one G2 call; and the proof, at the golden fixed (r, s), is
+    counters gain, in one G1 call and one G2 call, the rows of nonzero
+    window digit of the assignment (A, B1, L; B2) and of h (H), and skip the
+    rest of W (2 n_vars + aux + domain) and W n_vars; and the proof, at the
+    golden fixed (r, s), is
     tests/golden/chain254_proof.json byte for byte (test_torch_groth16
     proves the same bytes with no collector);
   - BatchProver.prove_many of two inputs on the c = a * b circuit of
@@ -39,6 +41,7 @@ from circom_compat_tpu_torch.circom.zkey_writer import write_zkey
 from circom_compat_tpu_torch.models import generate_random_parameters
 from circom_compat_tpu_torch.models import groth16_device as gd
 from circom_compat_tpu_torch.models.batch import BatchProver
+from circom_compat_tpu_torch.ops import field_kernels as fk
 from circom_compat_tpu_torch.server import ProveServer
 from circom_compat_tpu_torch.utils import trace
 from circom_compat_tpu_torch.utils.chain import chain_circuit
@@ -95,8 +98,18 @@ def test_server_prove_under_stage_ranges(ring, tmp_path):
         tuple(int(v, 16) for v in p["a"]), tuple(tuple(int(v, 16) for v in c) for c in p["b"]),
         tuple(int(v, 16) for v in p["c"]))
     dpk, W = srv.dpk, msm.num_windows(4)
-    assert msm.BUCKET_ROWS == {"g1": W * (2 * dpk.n_vars + dpk.aux_len + dpk.domain_size),
-                               "g2": W * dpk.n_vars}
+    z = torch.from_numpy(gd.encode_assignment(chain_circuit(k=254, a=3).full_assignment()))
+    h = fk.fr_from_mont(dpk.matrices.witness_map(fk.fr_to_mont(z)))[: len(dpk.queries["h"])]
+
+    def nonzero(words):  # the rows of nonzero digit, which bucket_sums gathers
+        return int((msm.window_digits(words, 4) != 0).sum())
+
+    za = nonzero(z)
+    assert msm.BUCKET_ROWS == {
+        "g1": 2 * za + nonzero(z[dpk.num_inputs : dpk.num_inputs + dpk.aux_len]) + nonzero(h),
+        "g2": za}
+    assert {g: msm.BUCKET_ROWS[g] + msm.BUCKET_SKIPPED[g] for g in ("g1", "g2")} == {
+        "g1": W * (2 * dpk.n_vars + dpk.aux_len + dpk.domain_size), "g2": W * dpk.n_vars}
     assert msm.BUCKET_CALLS == {"g1": 1, "g2": 1}
 
     # the events devtrace.read_capture reads (prof.events() folds a range
