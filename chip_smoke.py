@@ -943,8 +943,8 @@ def evm_phase(work, vk, proof, public):
 
 
 STREAMED_KERNELS = ["fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid", "point_add_g1",
-                    "point_add_g2", "tile_scan_g1", "tile_scan_g2"]
-SHARDED_KERNELS = STREAMED_KERNELS  # K1, K2, K3/K4, K6/K7 and K8
+                    "point_add_g2", "tile_scan_g1", "tile_scan_g2", "proof_fold"]
+SHARDED_KERNELS = STREAMED_KERNELS  # K1, K2, K3/K4, K6/K7, K8 and K10
 
 
 def streamed_phase(dev, card, pk, matrices, resident, asg, r, s, rng, ks, g1_pool, g2_pool,

@@ -6,8 +6,7 @@ staged DeviceProvingKey stays resident and the work is pipelined:
   host witness workers (a thread pool, one WitnessCalculator per thread)
       -> the device prove core (prove_core; kernel launches are
          asynchronous, so the next witness is computed meanwhile)
-      -> proof assembly (assemble_resident: on a card K10 folds the window
-         sums and applies the r/s algebra, and three points come back)
+      -> proof assembly (groth16_device.assemble_proof: K10 on a card)
 
 at most `inflight` proves queued on the device at once. Per-proof latency
 equals the single prove's; results come back in input order.
@@ -25,8 +24,6 @@ import queue
 import threading
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
-
-import torch
 
 from ..constants import R_SCALAR
 from ..utils import trace
@@ -102,7 +99,8 @@ class BatchProver:
             i, w, (g1, g2, _) = pending.get()
             r, s = rs[i]
             with trace.request(rids[i]):
-                proof = gd.assemble_resident(dpk, r, s, g1, g2, wb)
+                proof = gd.assemble_proof(dpk.pk, r, s, g1, g2, wb,
+                                          (dpk.fixed_g1, dpk.fixed_g2))
             results[i] = BatchResult(
                 proof=proof, public_inputs=[v % R_SCALAR for v in w[1 : dpk.num_inputs]],
                 witness=list(w) if self.keep_witness else None)
@@ -115,7 +113,7 @@ class BatchProver:
                     with trace.span("batch.witness_wait"):
                         w = fut.result()  # in order: keeps results aligned and bounded
                     with trace.span("prove.encode", dpk.device):
-                        asg = torch.from_numpy(gd.encode_assignment(w)).to(dpk.device)
+                        asg = gd.assignment_on(w, dpk.device)
                     pending.put((i, w, gd.prove_core(dpk, asg, wb)))
                 if pending.qsize() >= inflight:
                     drain_one()

@@ -10,7 +10,10 @@ prove_prepared runs, for a staged DeviceProvingKey:
      bucket reduce, B2 in G2 through another (ops/msm.py),
   6. the proof's points (assemble_proof): on a card K10 Horner-folds the
      window sums and applies the r/s randomizer algebra there, and three
-     points come back; elsewhere the sums come back and the host folds.
+     points come back; sums on the CPU come back and the host folds.
+
+Every prover takes its assignment upload (assignment_on), step 4 with
+the digit-0 counts (msm_sorts) and step 6 (assemble_proof) from here.
 
 Every entry point runs on the card unless the caller passes device="cpu",
 where the kernel wrappers run their plain versions.
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -219,6 +222,22 @@ _PROVE_KEYS = {"prove.encode": "encode", "prove.witness_map": "witness_map", "so
                "fold": "assemble"}
 
 
+def msm_sorts(scalars: Sequence[tuple], window_bits: int) -> List[tuple]:
+    """Each entry of `scalars`, one device's (assignment, aux rows, h[, B2's
+    own rows or None]) -> ((G1 sorts [A, B1, L, H], their digit-0 counts
+    (4, W)), (G2 sorts [B2], counts (1, W))). B2 shares A's sort unless it
+    has rows of its own. Every entry's sorts (window_orders) are queued
+    first; then each entry's counts come back in one read for both groups
+    (digit_zero_counts)."""
+    sorts = [[msm_ops.window_orders(x, window_bits) for x in entry if x is not None]
+             for entry in scalars]
+    out = []
+    for sa, sl, sh, *b2 in sorts:
+        zeros = msm_ops.digit_zero_counts([sa, sa, sl, sh] + b2)
+        out.append((([sa, sa, sl, sh], zeros[:4]), (b2, zeros[4:]) if b2 else ([sa], zeros[:1])))
+    return out
+
+
 def prove_core(dpk: DeviceProvingKey, asg_plain: torch.Tensor, window_bits: int):
     """(n_vars, 8) canonical assignment words on the key's device ->
     (G1 window sums (4, W, 3, 8) for [A, B1, L, H], G2 sums (W, 3, 2, 8), h)."""
@@ -226,20 +245,15 @@ def prove_core(dpk: DeviceProvingKey, asg_plain: torch.Tensor, window_bits: int)
     with trace.span("prove.witness_map", dev):
         h = fk.fr_from_mont(dpk.matrices.witness_map(fk.fr_to_mont(asg_plain)))
     with trace.span("prove.msm", dev):
+        q = dpk.queries
         with trace.span("sorts", dev):
-            q = dpk.queries
-            sort_a = msm_ops.window_orders(asg_plain, window_bits)
-            sort_l = msm_ops.window_orders(
-                asg_plain[dpk.num_inputs : dpk.num_inputs + dpk.aux_len], window_bits)
-            sort_h = msm_ops.window_orders(h[: len(q["h"])], window_bits)
-            # one read of the digit-0 counts for both groups (B2's sort is A's)
-            zeros = msm_ops.digit_zero_counts([sort_a, sort_a, sort_l, sort_h])
+            (s1, z1), (s2, z2) = msm_sorts(
+                [(asg_plain, asg_plain[dpk.num_inputs : dpk.num_inputs + dpk.aux_len],
+                  h[: len(q["h"])])], window_bits)[0]
         with trace.span("msm_g1", dev):
-            g1 = msm_ops.window_sums([q["a"], q["b1"], q["l"], q["h"]],
-                                     [sort_a, sort_a, sort_l, sort_h], window_bits, zeros=zeros)
+            g1 = msm_ops.window_sums([q["a"], q["b1"], q["l"], q["h"]], s1, window_bits, zeros=z1)
         with trace.span("msm_g2", dev):
-            g2 = msm_ops.window_sums([q["b2"]], [sort_a], window_bits,
-                                     zeros=zeros[:1])[0]
+            g2 = msm_ops.window_sums([q["b2"]], s2, window_bits, zeros=z2)[0]
     return g1, g2, h
 
 
@@ -269,41 +283,31 @@ def _assemble_host(pk: ProvingKey, r: int, s: int, g1_sums, g2_sums, window_bits
     return Proof(a=g_a, b=g_b2, c=g_c)
 
 
-def assemble_proof(pk: ProvingKey, r: int, s: int, g1_sums, g2_sums, window_bits: int,
-                   fixed=None) -> Proof:
+def assemble_proof(pk: ProvingKey, r: int, s: int, g1_sums: torch.Tensor,
+                   g2_sums: torch.Tensor, window_bits: int, fixed=None) -> Proof:
     """The proof from the five MSMs' window sums, G1 (4, W, 3, 8) [A, B1,
-    L, H] and G2 (W, 3, 2, 8); where they live picks the route. CUDA
-    tensors: K10 folds them and applies the r/s algebra on their card (span
-    fold), with `fixed` the key's points staged there (stage_fixed, staged
-    here when not given), and three points come back and are decoded (span
-    readback). CPU tensors: read back (span readback), then the host
-    decodes the sums, Horner-folds them and applies the r/s algebra (span
-    fold). Numpy arrays, which the caller read back under its own spans:
-    the host route, with no span."""
-    if not isinstance(g1_sums, torch.Tensor):
-        return _assemble_host(pk, r, s, g1_sums, g2_sums, window_bits)
+    L, H] and G2 (W, 3, 2, 8), in span prove.assemble; where they lie picks
+    the route. On a card: K10 folds them and applies the r/s algebra there
+    (span fold), with `fixed` the key's points (stage_fixed) where they lie
+    on the sums' card and staged here otherwise, and three points come back
+    and are decoded (span readback). On the CPU: read back (span readback),
+    then the host decodes the sums, Horner-folds them and applies the r/s
+    algebra (span fold)."""
     dev = g1_sums.device
-    if g1_sums.is_cuda:
-        fixed = stage_fixed(pk, dev) if fixed is None else fixed
-        with trace.span("fold", dev):
-            words = ck.proof_fold(g1_sums, g2_sums, *fixed, r, s, window_bits)
+    with trace.span("prove.assemble", dev):
+        if g1_sums.is_cuda:
+            if fixed is None or fixed[0].device != dev:
+                fixed = stage_fixed(pk, dev)
+            with trace.span("fold", dev):
+                words = ck.proof_fold(g1_sums, g2_sums, *fixed, r, s, window_bits)
+            with trace.span("readback", dev):
+                a, b, c = ck.proof_points(words.cpu())
+                return Proof(a=cv.decode_g1_proj(a)[0], b=cv.decode_g2_proj(b)[0],
+                             c=cv.decode_g1_proj(c)[0])
         with trace.span("readback", dev):
-            a, b, c = ck.proof_points(words.cpu())
-            return Proof(a=cv.decode_g1_proj(a)[0], b=cv.decode_g2_proj(b)[0],
-                         c=cv.decode_g1_proj(c)[0])
-    with trace.span("readback", dev):
-        g1_sums, g2_sums = g1_sums.numpy(), g2_sums.numpy()
-    with trace.span("fold", dev):
-        return _assemble_host(pk, r, s, g1_sums, g2_sums, window_bits)
-
-
-def assemble_resident(dpk: DeviceProvingKey, r: int, s: int, g1_sums: torch.Tensor,
-                      g2_sums: torch.Tensor, window_bits: int) -> Proof:
-    """prove.assemble of the window sums prove_core left on the key's
-    device (assemble_proof, with the key's staged points)."""
-    with trace.span("prove.assemble", dpk.device):
-        return assemble_proof(dpk.pk, r, s, g1_sums, g2_sums, window_bits,
-                              (dpk.fixed_g1, dpk.fixed_g2))
+            g1_sums, g2_sums = g1_sums.numpy(), g2_sums.numpy()
+        with trace.span("fold", dev):
+            return _assemble_host(pk, r, s, g1_sums, g2_sums, window_bits)
 
 
 def encode_assignment(full_assignment) -> np.ndarray:
@@ -323,6 +327,12 @@ def encode_assignment(full_assignment) -> np.ndarray:
     return fl.encode_plain(full_assignment)
 
 
+def assignment_on(full_assignment, device) -> torch.Tensor:
+    """The assignment (encode_assignment's forms) as (N, 8) canonical words
+    on `device`."""
+    return _to_device(encode_assignment(full_assignment), device)
+
+
 def prove_prepared(dpk: DeviceProvingKey, r: int, s: int, full_assignment: Sequence[int],
                    window_bits: Optional[int] = None,
                    stage_times: Optional[dict] = None) -> Proof:
@@ -338,9 +348,9 @@ def prove_prepared(dpk: DeviceProvingKey, r: int, s: int, full_assignment: Seque
     dev = dpk.device
     with timed_stages(stage_times, _PROVE_KEYS):
         with trace.span("prove.encode", dev):
-            asg = _to_device(encode_assignment(full_assignment), dev)
+            asg = assignment_on(full_assignment, dev)
         g1, g2, _ = prove_core(dpk, asg, window_bits)
-        return assemble_resident(dpk, r, s, g1, g2, window_bits)
+        return assemble_proof(dpk.pk, r, s, g1, g2, window_bits, (dpk.fixed_g1, dpk.fixed_g2))
 
 
 def prove(pk: ProvingKey, r: int, s: int, matrices, num_inputs: int, num_constraints: int,

@@ -27,8 +27,9 @@ and two device buffers, copied on a stream of their own:
   - the copy into device buffer i waits, on the copy stream, for the
     compute that last read it;
   - the compute stream waits for its chunk's copy event.
-The chunk's kernels are queued without a host sync, so the host stages
-chunk j + 1 and queues its copy while the card computes chunk j.
+A chunk's one host read is its digit-0 counts (groth16_device.msm_sorts);
+the rest is queued, so the host stages chunk j + 1 and queues its copy
+while the card reduces chunk j.
 On the CPU (device="cpu") the same loop runs on plain slices: no pinning,
 no streams.
 
@@ -149,8 +150,8 @@ class ChunkPipe:
     """One device's end of the chunk stream, under the rules of the module
     docstring: on a CUDA device two pinned host buffer pairs, two device
     buffer pairs and a copy stream; on the CPU one plain buffer pair. Each
-    push fills a host pair, copies it to the device and queues the chunk's
-    compute there without a host sync."""
+    push fills a host pair, copies it to the device and runs the chunk's
+    compute on the compute stream."""
 
     def __init__(self, device: torch.device, chunk: int):
         self.cuda = device.type == "cuda"
@@ -236,7 +237,7 @@ def prove_streamed(spk: StreamedProvingKey, r: int, s: int,
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     with trace.span("prove.encode", dev):
-        asg = gd._to_device(gd.encode_assignment(full_assignment), dev)
+        asg = gd.assignment_on(full_assignment, dev)
     with trace.span("prove.witness_map", dev):
         h = fk.fr_from_mont(spk.matrices.witness_map(fk.fr_to_mont(asg)))
         loop = -(-n // chunk) * chunk
@@ -250,19 +251,17 @@ def prove_streamed(spk: StreamedProvingKey, r: int, s: int,
                True: cv.proj_identity_const(True, dev).expand((1, W, B, 3, 2, 8)).contiguous()}
 
         def compute(lo, g1, g2):
-            sa, sl, sh = (msm_ops.window_orders(sc[lo : lo + chunk], window_bits)
-                          for sc in scalars)
-            zeros = msm_ops.digit_zero_counts([sa, sa, sl, sh])  # one read: B2's sort is A's
+            (s1, z1), (s2, z2) = gd.msm_sorts(
+                [[sc[lo : lo + chunk] for sc in scalars]], window_bits)[0]
             acc[False] = ck.point_add(acc[False], msm_ops.bucket_sums(
-                list(g1), [sa, sa, sl, sh], window_bits, zeros=zeros))
+                list(g1), s1, window_bits, zeros=z1))
             acc[True] = ck.point_add(acc[True], msm_ops.bucket_sums(
-                [g2], [sa], window_bits, zeros=zeros[:1]))
+                [g2], s2, window_bits, zeros=z2))
 
         chunk_ms = _stream(spk, chunk, n, compute)
-        g1_sums = msm_ops.scan_buckets(acc[False]).cpu().numpy()
-        g2_sums = msm_ops.scan_buckets(acc[True])[0].cpu().numpy()
+        g1_sums = msm_ops.scan_buckets(acc[False])
+        g2_sums = msm_ops.scan_buckets(acc[True])[0]
     if cuda:
         LAST_PEAK_DEVICE_BYTES = torch.cuda.max_memory_allocated(dev)
         LAST_CHUNK_MS = chunk_ms
-    with trace.span("prove.assemble"):
-        return gd.assemble_proof(spk.pk, r, s, g1_sums, g2_sums, window_bits)
+    return gd.assemble_proof(spk.pk, r, s, g1_sums, g2_sums, window_bits)

@@ -11,16 +11,16 @@ likewise one segmented scan, and their sums one reduce keyed by window.
 Bucket 0 is multiplied by 0 in every window sum, so the reduce takes only
 the rows whose digit is nonzero: the stable sort puts a window's digit-0
 rows first, each window's count of them is read back (digit_zero_counts:
-one small read a bucket_sums call, or one a prove for both groups), and
+one small read a bucket_sums call, or one for both groups in the provers,
+models/groth16_device.msm_sorts), and
 bucket_sums gathers the suffixes that follow and returns the identity in
 bucket 0 of every window, as in any empty bucket. A witness of bits, whose
 digits are 0 in every window but the lowest, gathers at most one row a
 scalar where a dense one gathers about W. Batching keeps the plain
 versions' Python op count independent of W and M, and gives each kernel
-launch the work of all windows. The prove folds the W window sums on the
-card (K10, ops/curve_kernels.proof_fold); the standalone MSMs and the
-streamed and sharded provers read them back and fold them on the host on
-exact ints (fold_windows_host).
+launch the work of all windows. Every prover folds its W window sums on
+the card (K10, ops/curve_kernels.proof_fold); the standalone MSMs and CPU
+sums fold on the host on exact ints (fold_windows_host).
 
 msm_g1 / msm_g2 are the standalone MSMs: one vector of points and scalars,
 the window sums on the card unless the caller names another device, the

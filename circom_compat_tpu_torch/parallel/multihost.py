@@ -201,12 +201,7 @@ def prove_multihost(prover: MultihostProver, r: int, s: int, full_assignment,
                                mesh.num_processes) for x in (g1, g2))
 
     with gd.timed_stages(stage_times, ps._SHARDED_KEYS):
-        g1, g2 = ps.sharded_sums(prover.sharded, full_assignment, gather)
-        with trace.span("prove.assemble", mesh.local):
-            with trace.span("readback", mesh.local):
-                g1, g2 = g1.cpu().numpy(), g2.cpu().numpy()
-            with trace.span("fold"):
-                return gd.assemble_proof(prover.dpk.pk, r, s, g1, g2, prover.window_bits)
+        return ps.sharded_proof(prover.sharded, r, s, full_assignment, gather)
 
 
 # ---------------------------------------------------------------------------

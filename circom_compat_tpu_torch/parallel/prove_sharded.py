@@ -16,18 +16,19 @@ mesh while it records):
                      points were permuted to match when the key was staged.
                      Without it the single-card witness map runs once, on
                      the mesh's lead device;
-  prove.msm          sorts: each shard's digit sorts (A, B1 and B2 share the
-                     assignment's); msm_g1 / msm_g2: each shard's window
-                     sums through the batched bucket reduce (ops/msm.py);
-                     gather: the shards' sums all-gathered onto the lead
-                     device and tree-folded with K6/K7 adds;
-  prove.assemble     readback, then the host Horner fold and the r/s
-                     algebra (groth16_device.assemble_proof).
+  prove.msm          sorts: every shard's digit sorts, then one read a shard
+                     of their digit-0 counts (groth16_device.msm_sorts);
+                     msm_g1 / msm_g2: each shard's window sums through the
+                     batched bucket reduce (ops/msm.py); gather: the shards'
+                     sums all-gathered onto the lead device and tree-folded
+                     with K6/K7 adds;
+  prove.assemble     K10 on a card, the host fold for CPU sums
+                     (groth16_device.assemble_proof).
 
-The per-shard loops queue kernels on each shard's device with no host read
-between shards, so distinct cards run side by side. On a mesh that repeats
-one card the shards run one after another on it: the sharded code path,
-not a speed-up.
+The msm_g1 and msm_g2 loops queue kernels on each shard's device with no
+host read, so distinct cards run side by side. On a mesh that repeats one
+card the shards run one after another on it: the sharded code path, not a
+speed-up.
 """
 
 from __future__ import annotations
@@ -171,39 +172,37 @@ def build_sharded_prover(dpk: gd.DeviceProvingKey, mesh: Mesh, window_bits: Opti
         return _build(dpk, mesh, D, range(D), window_bits, dist_ntt)
 
 
-def sharded_sums(prover: ShardedProver, full_assignment, gather: Callable):
+def sharded_proof(prover: ShardedProver, r: int, s: int, full_assignment,
+                  gather: Callable) -> Proof:
     """The stages prove.encode, prove.witness_map and prove.msm: each
     shard's window sums, then gather(g1_sums, g2_sums) (lists of per-shard
-    G1 (4, W, 3, 8) and G2 (W, 3, 2, 8) sums) in prove.msm/gather. Returns
-    what gather returns."""
+    G1 (4, W, 3, 8) and G2 (W, 3, 2, 8) sums) in prove.msm/gather, whose
+    (G1, G2) sums on one device assemble_proof turns into the proof."""
     mesh, w = prover.mesh, prover.window_bits
     dpk = prover.dpk
     rows, rows2 = prover.n_pad // prover.total, prover.g2_pad // prover.total
     ni, aux = dpk.num_inputs, dpk.aux_len
     with trace.span("prove.encode", mesh):
-        words = torch.from_numpy(gd.encode_assignment(full_assignment))
+        words = gd.assignment_on(full_assignment, "cpu")
         asg = [copy_to(words, d) for d in mesh.devices]
     with trace.span("prove.witness_map", mesh):
         h = prover.h_scalars(asg)
     with trace.span("prove.msm", mesh):
         with trace.span("sorts", mesh):
-            sorts = []
-            for g, a, d in zip(prover.shard_ids, asg, mesh.devices):
-                lo = g * rows
-                sa = msm_ops.window_orders(rows_of([a], lo, lo + rows, d), w)
-                sl = msm_ops.window_orders(rows_of([a[ni : ni + aux]], lo, lo + rows, d), w)
-                sh = msm_ops.window_orders(rows_of(h, lo, lo + rows, d), w)
-                s2 = sa if rows2 == rows else msm_ops.window_orders(
-                    rows_of([a], g * rows2, (g + 1) * rows2, d), w)
-                sorts.append((sa, sl, sh, s2))
+            sorts = gd.msm_sorts([
+                [rows_of(x, g * rows, (g + 1) * rows, d) for x in ([a], [a[ni : ni + aux]], h)]
+                + [None if rows2 == rows else rows_of([a], g * rows2, (g + 1) * rows2, d)]
+                for g, a, d in zip(prover.shard_ids, asg, mesh.devices)], w)
         with trace.span("msm_g1", mesh):
-            g1 = [msm_ops.window_sums(list(q), [sa, sa, sl, sh], w)
-                  for q, (sa, sl, sh, _) in zip(prover.g1, sorts)]
+            g1 = [msm_ops.window_sums(list(q), s1, w, zeros=z1)
+                  for q, ((s1, z1), _) in zip(prover.g1, sorts)]
         with trace.span("msm_g2", mesh):
-            g2 = [msm_ops.window_sums([q], [s[3]], w)[0] for q, s in zip(prover.g2, sorts)]
+            g2 = [msm_ops.window_sums([q], s2, w, zeros=z2)[0]
+                  for q, (_, (s2, z2)) in zip(prover.g2, sorts)]
         del sorts
         with trace.span("gather", mesh):
-            return gather(g1, g2)
+            g1, g2 = gather(g1, g2)
+    return gd.assemble_proof(dpk.pk, r, s, g1, g2, w, (dpk.fixed_g1, dpk.fixed_g2))
 
 
 # prove_sharded's stage_times keys, by trace leaf name
@@ -213,18 +212,13 @@ _SHARDED_KEYS = {**gd._PROVE_KEYS, "gather": "gather"}
 def prove_sharded(dpk: gd.DeviceProvingKey, prover: ShardedProver, r: int, s: int,
                   full_assignment, stage_times: Optional[dict] = None) -> Proof:
     """Prove over the prover's mesh: the per-shard window sums, gathered and
-    folded on the lead device, then the host fold and the r/s algebra. The
-    proof equals prove_prepared's for the same key, assignment, r and s.
+    folded on the lead device, then the proof there. The proof equals
+    prove_prepared's for the same key, assignment, r and s.
     stage_times, when a dict, receives the wall seconds of each stage, as
     prove_prepared's (and "gather")."""
     if prover.dpk is not dpk:
         raise ValueError("the prover was built for another key")
     mesh = prover.mesh
     with gd.timed_stages(stage_times, _SHARDED_KEYS):
-        g1, g2 = sharded_sums(prover, full_assignment, lambda g1, g2: (
+        return sharded_proof(prover, r, s, full_assignment, lambda g1, g2: (
             fold_shard_sums(g1, mesh.lead), fold_shard_sums(g2, mesh.lead)))
-        with trace.span("prove.assemble", mesh):
-            with trace.span("readback", mesh):
-                g1, g2 = g1.cpu().numpy(), g2.cpu().numpy()
-            with trace.span("fold"):
-                return gd.assemble_proof(dpk.pk, r, s, g1, g2, prover.window_bits)

@@ -11,9 +11,10 @@ buffers, device buffers and copy stream (models/streamed.ChunkPipe), and
 the shard adds the part's bucket sums into its own (4, W, B) G1 and
 (1, W, B) G2 accumulators with K6/K7. The bucket suffix scans, the gather
 of the D window sums onto the lead device and their K6/K7 tree fold run
-once, at the end. Bucket sums are additive over any partition of the
-points, so the proof equals the resident and streamed provers' for any
-chunk and mesh.
+once, at the end, then assemble_proof (K10 on a card). A shard's part of
+a chunk reads back its digit-0 counts once (groth16_device.msm_sorts).
+Bucket sums are additive over any partition of the points, so the proof
+equals the resident and streamed provers' for any chunk and mesh.
 
     device memory a shard = its part of a chunk (two buffer pairs) + its
                             accumulators + its slices of the scalars
@@ -80,7 +81,7 @@ def prove_streamed_sharded(spk: sm.StreamedProvingKey, mesh: Optional[Mesh], r: 
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
     with trace.span("prove.encode", dev):
-        asg = gd._to_device(gd.encode_assignment(full_assignment), dev)
+        asg = gd.assignment_on(full_assignment, dev)
     with trace.span("prove.witness_map", mesh):
         h = fk.fr_from_mont(spk.matrices.witness_map(fk.fr_to_mont(asg)))
         # each shard's rows of the scalars of A/B1/B2, of L and of H: chunk j's
@@ -99,11 +100,12 @@ def prove_streamed_sharded(spk: sm.StreamedProvingKey, mesh: Optional[Mesh], r: 
             for i, pipe in enumerate(pipes):
 
                 def compute(g1, g2, i=i, j=j):
-                    sa, sl, sh = (msm_ops.window_orders(x[j], window_bits) for x in shard_sc[i])
+                    (s1, z1), (s2, z2) = gd.msm_sorts(
+                        [[x[j] for x in shard_sc[i]]], window_bits)[0]
                     acc[i][0] = ck.point_add(
-                        acc[i][0], msm_ops.bucket_sums(list(g1), [sa, sa, sl, sh], window_bits))
+                        acc[i][0], msm_ops.bucket_sums(list(g1), s1, window_bits, zeros=z1))
                     acc[i][1] = ck.point_add(
-                        acc[i][1], msm_ops.bucket_sums([g2], [sa], window_bits))
+                        acc[i][1], msm_ops.bucket_sums([g2], s2, window_bits, zeros=z2))
 
                 pipe.push(lambda g1, g2, lo_i=lo + i * part: sm._stage_pack(spk, lo_i, g1, g2),
                           compute)
@@ -111,10 +113,9 @@ def prove_streamed_sharded(spk: sm.StreamedProvingKey, mesh: Optional[Mesh], r: 
         with trace.span("scans", mesh):
             sums = [(msm_ops.scan_buckets(a1), msm_ops.scan_buckets(a2)[0]) for a1, a2 in acc]
         with trace.span("gather", mesh):
-            g1 = fold_shard_sums([x[0] for x in sums], mesh.lead).cpu().numpy()
-            g2 = fold_shard_sums([x[1] for x in sums], mesh.lead).cpu().numpy()
+            g1 = fold_shard_sums([x[0] for x in sums], mesh.lead)
+            g2 = fold_shard_sums([x[1] for x in sums], mesh.lead)
     if cards:
         LAST_PEAK_DEVICE_BYTES = {d: torch.cuda.max_memory_allocated(d) for d in cards}
         LAST_CHUNK_MS = chunk_ms
-    with trace.span("prove.assemble"):
-        return gd.assemble_proof(spk.pk, r, s, g1, g2, window_bits)
+    return gd.assemble_proof(spk.pk, r, s, g1, g2, window_bits)

@@ -8,8 +8,9 @@ sizes (pinned buffers and the copy stream on the card), the ceremony's
 scalar_mul_const and contribute, the standalone fft / ifft / coset_shift
 and the signed-digit MSM; K10 (proof_fold) against the host fold and its
 plain version, a 10^4 chain proof against the CPU's and its one launch a
-ProveServer.handle; bucket_sums' digit-0 skip on bit scalars against
-its plain version.
+ProveServer.handle; the streamed, sharded and streamed-sharded provers'
+proofs against prove_prepared's, each with one K10 launch; bucket_sums'
+digit-0 skip on bit scalars against its plain version.
 
 They need an NVIDIA GPU and skip without one. On a machine with a card:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider tests/test_torch_cuda.py
@@ -559,8 +560,7 @@ def _card_meshes():
 def test_sharded_prove_chain254_golden_on_card(cuda, dist_ntt):
     """prove_sharded over two shards on the card (and over two cards where
     the machine has them) gives the golden proof, launching K1, K2, K3/K4,
-    K6/K7 and K8; its sums come back to the host, which folds them (no
-    K10)."""
+    K6/K7 and K8; K10 folds its sums on the lead card (one launch)."""
     from circom_compat_tpu_torch.circom.zkey import read_zkey
     from circom_compat_tpu_torch.models import groth16_device as gd
     from circom_compat_tpu_torch.parallel import prove_sharded as ps
@@ -577,8 +577,8 @@ def test_sharded_prove_chain254_golden_on_card(cuda, dist_ntt):
                                        chain_circuit(k=254, a=3).full_assignment()))
         for name in ("fr_binary", "fr_tile_scan", "ntt_rows_low", "ntt_rows_mid"):
             assert fk.LAUNCHES[name] > 0, name
-        assert all(v > 0 for k, v in ck.LAUNCHES.items() if k != "proof_fold"), ck.LAUNCHES
-        assert ck.LAUNCHES["proof_fold"] == 0
+        assert all(v > 0 for v in ck.LAUNCHES.values()), ck.LAUNCHES
+        assert ck.LAUNCHES["proof_fold"] == 1
 
 
 @pytest.mark.cuda
@@ -601,6 +601,40 @@ def test_streamed_sharded_chain254_golden_on_card(cuda, chunk):
                                                 chain_circuit(k=254, a=3).full_assignment()))
         assert [len(v) for v in ss.LAST_CHUNK_MS.values()] == [-(-256 // chunk)] * 2
         assert all(v > 0 for v in ss.LAST_PEAK_DEVICE_BYTES.values())
+
+
+@pytest.mark.cuda
+def test_every_prover_folds_on_the_card(cuda):
+    """prove_streamed (three chunks), prove_sharded over a mesh that repeats
+    the card and prove_streamed_sharded give prove_prepared's proof byte for
+    byte on the chain254 golden key, each with one K10 launch."""
+    from circom_compat_tpu_torch.circom.zkey import read_zkey
+    from circom_compat_tpu_torch.models import groth16_device as gd
+    from circom_compat_tpu_torch.models import streamed
+    from circom_compat_tpu_torch.parallel import mesh as pm
+    from circom_compat_tpu_torch.parallel import prove_sharded as ps
+    from circom_compat_tpu_torch.parallel import streamed_sharded as ss
+    from circom_compat_tpu_torch.utils.chain import chain_circuit
+
+    rec = json.loads((GOLDEN / "chain254_proof.json").read_text())
+    r, s = rec["r"], rec["s"]
+    pk, m = read_zkey(GOLDEN / "chain254.zkey")
+    asg = chain_circuit(k=254, a=3).full_assignment()
+    dpk = gd.DeviceProvingKey.build(pk, m, m.num_constraints, device=cuda)
+    want = gd.prove_prepared(dpk, r, s, asg)
+    _golden_proof(want)
+    spk = streamed.StreamedProvingKey.build(pk, m, m.num_constraints, chunk_points=100,
+                                            device=cuda)
+    mesh = pm.make_mesh(devices=[torch.device("cuda", torch.cuda.current_device())] * 2)
+    prover = ps.build_sharded_prover(dpk, mesh)
+    provers = {"streamed": lambda: streamed.prove_streamed(spk, r, s, asg),
+               "sharded": lambda: ps.prove_sharded(dpk, prover, r, s, asg),
+               "streamed_sharded": lambda: ss.prove_streamed_sharded(spk, mesh, r, s, asg)}
+    for name, prove in provers.items():
+        before = ck.LAUNCHES["proof_fold"]
+        got = prove()
+        assert (got.a, got.b, got.c) == (want.a, want.b, want.c), name
+        assert ck.LAUNCHES["proof_fold"] == before + 1, name
 
 
 @pytest.mark.cuda
@@ -773,7 +807,7 @@ def test_proof_fold_vs_host(cuda, c, W, sums):
     fixed = fc.fixed(cuda)
     ck.reset_launches()
     for r, s in FOLD_RS:
-        host = gd.assemble_proof(fc.pk, r, s, g1.numpy(), g2.numpy(), c)
+        host = gd.assemble_proof(fc.pk, r, s, g1, g2, c)
         card = gd.assemble_proof(fc.pk, r, s, g1.to(cuda), g2.to(cuda), c, fixed)
         assert (card.a, card.b, card.c) == (host.a, host.b, host.c)
     assert ck.LAUNCHES["proof_fold"] == len(FOLD_RS)

@@ -10,7 +10,10 @@
   - with no card, the default device raises and names the device argument;
   - a prepared assignment as the JAX package's (N, 16) 16-bit limbs or as
     (N, 8) int32 words encodes to the words of the Python ints, and the
-    chain254 proof from the limbs is the golden proof.
+    chain254 proof from the limbs is the golden proof;
+  - msm_sorts pairs the five MSMs with the sorts window_orders gives, B2
+    with A's or with its own rows, and reads each device's digit-0 counts
+    once, after every device's sorts.
 The byte-exact comparison with groth16_jax.prove costs minutes of XLA build
 here and rides the slow tier.
 """
@@ -35,6 +38,7 @@ from circom_compat_tpu_torch.models import groth16_device as gd
 from circom_compat_tpu_torch.models.groth16 import Groth16, Proof
 from circom_compat_tpu_torch.ops import field_kernels as fk
 from circom_compat_tpu_torch.ops import limbs as tl
+from circom_compat_tpu_torch.ops import msm as msm_ops
 from circom_compat_tpu_torch.utils.chain import chain_circuit
 
 # The plain versions run many small tensor ops: one thread per test process
@@ -214,6 +218,42 @@ def test_chain254_golden_from_prepared_limbs():
     limbs = jax_limbs.ints_to_limbs(chain_circuit(k=254, a=3).full_assignment())
     assert limbs.shape[1] == 16
     assert gd.prove_prepared(dpk, rec["r"], rec["s"], limbs) == golden
+
+
+@pytest.mark.parametrize("own_b2", [False, True], ids=["b2_shares_a", "b2_own_rows"])
+def test_msm_sorts_pairs_and_reads_once(monkeypatch, own_b2):
+    """Two devices' scalars (both the CPU here): the G1 sorts are
+    window_orders of [A, A, aux, h] and the G2 sort A's (the same tensors)
+    or B2's own rows'; their counts are digit_zero_counts of those sorts,
+    read once a device, after every device's sorts."""
+    w, events = 4, []
+    orders, counts = msm_ops.window_orders, msm_ops.digit_zero_counts
+    monkeypatch.setattr(msm_ops, "window_orders",
+                        lambda x, wb: events.append("sort") or orders(x, wb))
+    monkeypatch.setattr(msm_ops, "digit_zero_counts",
+                        lambda sorts: events.append(len(sorts)) or counts(sorts))
+    rng = np.random.default_rng(21)
+
+    def scalars(n):  # zeros and small values too, so that some digits are 0
+        vals = [int(v) for v in rng.integers(0, 1 << 62, n)]
+        vals[: n // 4] = [0] * (n // 4)
+        vals[n // 4 : n // 2] = [v % 5 for v in vals[n // 4 : n // 2]]
+        return torch.from_numpy(gd.encode_assignment(
+            [v * (1 << 190) % R_SCALAR if i % 3 else v for i, v in enumerate(vals)]))
+
+    entries = [(a, a[3:], scalars(24), scalars(40) if own_b2 else None)
+               for a in (scalars(32), scalars(32))]
+    got = gd.msm_sorts(entries, w)
+    per = 5 if own_b2 else 4
+    assert events == ["sort"] * (2 * (per - 1)) + [per, per]
+    for (asg, aux, h, b2), ((s1, z1), (s2, z2)) in zip(entries, got):
+        want1 = [orders(x, w) for x in (asg, asg, aux, h)]
+        want2 = orders(asg if b2 is None else b2, w)
+        assert s1[0] is s1[1] and (s2[0] is s1[0]) == (b2 is None)
+        for (o, k), (wo, wk) in zip(s1 + s2, want1 + [want2]):
+            assert torch.equal(o, wo) and torch.equal(k, wk)
+        assert torch.equal(z1, counts(want1)) and torch.equal(z2, counts([want2]))
+        assert z1[:2].sum() > 0 and z2.shape == (1, msm_ops.num_windows(w))
 
 
 @pytest.mark.slow

@@ -1,7 +1,7 @@
 """K10 (ops/curve_kernels.proof_fold): the proof's A, B2 and C from the five
 MSMs' window sums, a Horner fold each and the r/s algebra. On the CPU: its
-plain version at a tiny size and assemble_proof's host route for numpy sums
-and CPU tensors, each against the JAX package's assemble_proof on the same
+plain version at a tiny size and assemble_proof's host route for sums on
+the CPU, each against the JAX package's assemble_proof on the same
 sums and its refmath's proof of the known discrete logs, and the key points
 DeviceProvingKey stages for it. The helpers here build window sums of known
 discrete logs; tests/test_torch_cuda.py uses them at full size on the card,
@@ -132,11 +132,11 @@ def test_point_double_plain_vs_refmath(g2):
                                                                            for p in pts]
 
 
-@pytest.mark.parametrize("form", ["numpy", "cpu_tensor"])
+@pytest.mark.parametrize("form", ["cpu_tensor"])
 def test_assemble_proof_host_route(monkeypatch, form):
-    """Sums that are numpy arrays or CPU tensors take the host route (no
-    proof_fold, no launch), and its proof is the JAX package's
-    assemble_proof's on the same sums, and its refmath's."""
+    """Sums that are CPU tensors take the host route (no proof_fold, no
+    launch), and its proof is the JAX package's assemble_proof's on the
+    same sums, and its refmath's."""
     from circom_compat_tpu_torch.models import groth16_device as gd
 
     def no_kernel(*args, **kwargs):
@@ -146,8 +146,6 @@ def test_assemble_proof_host_route(monkeypatch, form):
     case = FoldCase(3, 5, random.Random(3))
     case.g1_logs[1][0] = 0
     g1, g2 = case.sums()
-    if form == "numpy":
-        g1, g2 = g1.numpy(), g2.numpy()
     r, s = random.Random(4).randrange(R_SCALAR), random.Random(5).randrange(R_SCALAR)
     launches = ck.LAUNCHES["proof_fold"]
     proof = gd.assemble_proof(case.pk, r, s, g1, g2, 5)

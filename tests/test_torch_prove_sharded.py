@@ -4,7 +4,8 @@
     build_sharded_prover(..., dist_ntt=True) on ["cpu"] * 2 (the mesh
     repeats one device) with the golden r and s equals
     tests/golden/chain254_proof.json (the JAX package's bytes) and
-    verifies; its trace holds the prove's stages and prove.msm/gather;
+    verifies; its trace holds the prove's stages and prove.msm/gather, and
+    the digit-0 counts are read once a shard;
   - the default turns the distributed NTT on where the domain splits over
     the mesh, and off where it does not;
   - the staged shards hold the key's rows, H in TD order;
@@ -23,6 +24,7 @@ from circom_compat_tpu_torch.circom.zkey import read_zkey
 from circom_compat_tpu_torch.models import groth16_device as gd
 from circom_compat_tpu_torch.models.groth16 import Groth16
 from circom_compat_tpu_torch.ops import limbs as tl
+from circom_compat_tpu_torch.ops import msm as msm_ops
 from circom_compat_tpu_torch.parallel import mesh as pm
 from circom_compat_tpu_torch.parallel import ntt_sharded as ns
 from circom_compat_tpu_torch.parallel import prove_sharded as ps
@@ -39,11 +41,14 @@ def key():
     return gd.DeviceProvingKey.build(pk, m, m.num_constraints, device="cpu")
 
 
-def test_chain254_sharded_dist_ntt_is_golden(key):
+def test_chain254_sharded_dist_ntt_is_golden(key, monkeypatch):
     rec = json.loads((GOLDEN / "chain254_proof.json").read_text())
     circuit = chain_circuit(k=254, a=3)
     mesh = pm.make_mesh(devices=["cpu"] * 2)
     prover = ps.build_sharded_prover(key, mesh, window_bits=4, dist_ntt=True)
+    reads, counts = [], msm_ops.digit_zero_counts
+    monkeypatch.setattr(msm_ops, "digit_zero_counts",
+                        lambda sorts: reads.append(len(sorts)) or counts(sorts))
     times = {}
     with trace.collect() as tr:
         proof = ps.prove_sharded(key, prover, rec["r"], rec["s"], circuit.full_assignment(),
@@ -53,6 +58,7 @@ def test_chain254_sharded_dist_ntt_is_golden(key):
     assert proof.b == tuple(tuple(int(v, 16) for v in c) for c in want["b"])
     assert proof.c == tuple(int(v, 16) for v in want["c"])
     assert Groth16.verify_proof(key.pk.vk, proof, circuit.get_public_inputs())
+    assert reads == [4, 4]  # one a shard, for both groups (B2's rows are A's)
     assert [name for name, _ in tr.stages] == [
         "prove.encode", "prove.witness_map", "prove.msm/sorts", "prove.msm/msm_g1",
         "prove.msm/msm_g2", "prove.msm/gather", "prove.msm", "prove.assemble/readback",

@@ -4,7 +4,8 @@
     chunk_points=128 (two chunks, each split into two parts of 64 rows;
     L ends inside the last part) with the golden r and s equals
     tests/golden/chain254_proof.json (the JAX package's bytes); its trace
-    holds the streamed prove's stages;
+    holds the streamed prove's stages, and the digit-0 counts are read once
+    a shard a chunk;
   - the chunk rule is the JAX package's (streamed_sharded.py:176-183);
   - a section longer than its scalars is refused, and without a card the
     default mesh raises and names the argument.
@@ -19,6 +20,7 @@ import torch
 
 from circom_compat_tpu_torch.circom.zkey import read_zkey
 from circom_compat_tpu_torch.models import streamed as sm
+from circom_compat_tpu_torch.ops import msm as msm_ops
 from circom_compat_tpu_torch.parallel import mesh as pm
 from circom_compat_tpu_torch.parallel import streamed_sharded as ss
 from circom_compat_tpu_torch.utils import trace
@@ -33,10 +35,13 @@ def key():
     return read_zkey(GOLDEN / "chain254.zkey")
 
 
-def test_chain254_streamed_sharded_two_chunks_is_golden(key):
+def test_chain254_streamed_sharded_two_chunks_is_golden(key, monkeypatch):
     rec = json.loads((GOLDEN / "chain254_proof.json").read_text())
     pk, m = key
     spk = sm.StreamedProvingKey.build(pk, m, m.num_constraints, chunk_points=128, device="cpu")
+    reads, counts = [], msm_ops.digit_zero_counts
+    monkeypatch.setattr(msm_ops, "digit_zero_counts",
+                        lambda sorts: reads.append(len(sorts)) or counts(sorts))
     with trace.collect() as tr:
         proof = ss.prove_streamed_sharded(spk, pm.make_mesh(devices=["cpu"] * 2), rec["r"],
                                           rec["s"], chain_circuit(k=254, a=3).full_assignment(),
@@ -45,9 +50,11 @@ def test_chain254_streamed_sharded_two_chunks_is_golden(key):
     assert proof.a == tuple(int(v, 16) for v in want["a"])
     assert proof.b == tuple(tuple(int(v, 16) for v in c) for c in want["b"])
     assert proof.c == tuple(int(v, 16) for v in want["c"])
+    assert reads == [4] * 4  # one a shard a chunk, for both groups
     assert [name for name, _ in tr.stages] == [
         "prove.encode", "prove.witness_map/witness_map.sparse", "prove.witness_map",
-        "prove.msm_stream/scans", "prove.msm_stream/gather", "prove.msm_stream", "prove.assemble"]
+        "prove.msm_stream/scans", "prove.msm_stream/gather", "prove.msm_stream",
+        "prove.assemble/readback", "prove.assemble/fold", "prove.assemble"]
     assert ss.LAST_CHUNK_MS == {}  # chunk times are the card's only
 
 
